@@ -1,0 +1,206 @@
+// K4: one weighted Lloyd step, fused.
+//
+// Replaces the loop body of patolette_tpu/models/kmeans.py::lloyd_iterations
+// (assign -> one-hot segment matmul of [w, w x] -> centre update ->
+// _split_empty). The JAX package ran it as three XLA programs a step; here
+// it is two kernels and no host round trip, so a whole KMeans run is
+// enqueued without a sync.
+//
+// kmeans_partial: each sample's nearest centre (K3's arithmetic: skip
+// invalid slots, strict <, |c|^2 - 2 ((xa ca + xb cb) + xc cc) with every
+// op rounded on its own), then [w, w x0, w x1, w x2] accumulated into a
+// per-block (P, 4) table by owner scans (no atomics).
+// kmeans_finalize: ONE block sums the partials in block order, updates the
+// centres (mean where the cluster has mass and the slot is valid) and walks
+// the P slots in order as _split_empty does: a valid empty slot takes the
+// valid cluster of largest mass (first index on ties), both move by
+// +-1/1024 with alternating signs per coordinate, and the mass is halved.
+//
+// Bound on the H100: f32 operations of the assignment, 7 per (sample,
+// centre): at M = 262,144, P = 256, 0.47 GFLOP a step, ~7 us at 67
+// TFLOP/s; the bytes (3.1 MB of samples and weights) take ~1 us. The
+// sequential split walk is latency, not throughput: it runs only for the
+// slots that are empty, each a block-wide argmax.
+#include "common.cuh"
+
+namespace {
+
+constexpr float kEps = 1.0f / 1024.0f;
+constexpr int kFinalizeThreads = 1024;
+
+__global__ void kmeans_partial(const float* __restrict__ x,
+                               const float* __restrict__ w,
+                               const float* __restrict__ centers,
+                               const int* __restrict__ valid, int m, int p,
+                               int per_block, float* __restrict__ partials,
+                               int* __restrict__ labels) {
+  extern __shared__ float4 smem4[];
+  float4* sc = smem4;                              // p
+  float* table = (float*)(sc + p);                 // p * 4
+  float* stage = table + (size_t)p * 4;            // PT_STAGE * 4
+  int* sv = (int*)(stage + PT_STAGE * 4);          // p
+  int* skey = sv + p;                              // PT_STAGE
+
+  const int tid = threadIdx.x;
+  for (int k = tid; k < p; k += blockDim.x) {
+    const float c0 = centers[3 * k], c1 = centers[3 * k + 1],
+                c2 = centers[3 * k + 2];
+    sc[k] = make_float4(c0, c1, c2, pt_norm2(c0, c1, c2));
+    sv[k] = valid[k];
+    table[4 * k] = table[4 * k + 1] = table[4 * k + 2] = table[4 * k + 3] =
+        0.0f;
+  }
+
+  const int start = blockIdx.x * per_block;
+  const int end = min(m, start + per_block);
+  for (int base = start; base < end; base += PT_STAGE) {
+    const int cnt = min(PT_STAGE, end - base);
+    __syncthreads();
+    for (int i = tid; i < cnt; i += blockDim.x) {
+      const int q = base + i;
+      const float xa = x[3 * (size_t)q], xb = x[3 * (size_t)q + 1],
+                  xc = x[3 * (size_t)q + 2];
+      float best = INFINITY;
+      int lbl = 0;
+      for (int k = 0; k < p; ++k) {
+        if (!sv[k]) continue;
+        const float d = pt_dist(xa, xb, xc, sc[k]);
+        if (d < best) {
+          best = d;
+          lbl = k;
+        }
+      }
+      const float wq = w ? w[q] : 1.0f;
+      float* s = stage + i * 4;
+      s[0] = wq;
+      s[1] = __fmul_rn(wq, xa);
+      s[2] = __fmul_rn(wq, xb);
+      s[3] = __fmul_rn(wq, xc);
+      skey[i] = lbl;
+      if (labels) labels[q] = lbl;
+    }
+    __syncthreads();
+    for (int i = 0; i < cnt; ++i) {
+      const int key = skey[i];
+      if (key % PT_THREADS == tid) {
+        float* row = table + (size_t)key * 4;
+        const float* s = stage + i * 4;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) row[k] = __fadd_rn(row[k], s[k]);
+      }
+    }
+  }
+  __syncthreads();
+  float* dst = partials + (size_t)blockIdx.x * p * 4;
+  for (int i = tid; i < p * 4; i += blockDim.x) dst[i] = table[i];
+}
+
+// (v1, i1) <- better of itself and (v2, i2): larger value, then lower index;
+// index p marks "no element".
+__device__ __forceinline__ void argmax_merge(float& v1, int& i1, float v2,
+                                             int i2, int p) {
+  if (i2 == p) return;
+  if (i1 == p || v2 > v1 || (v2 == v1 && i2 < i1)) {
+    v1 = v2;
+    i1 = i2;
+  }
+}
+
+__global__ void kmeans_finalize(const float* __restrict__ partials,
+                                int nblocks, const float* __restrict__ cin,
+                                float* __restrict__ cout,
+                                const int* __restrict__ valid, int p) {
+  extern __shared__ float fsm[];
+  float* mom = fsm;                    // p * 4
+  float* hs = mom + (size_t)p * 4;     // p
+  float* cent = hs + p;                // p * 3
+  int* sv = (int*)(cent + (size_t)p * 3);  // p
+  float* red_v = (float*)(sv + p);     // blockDim
+  int* red_i = (int*)(red_v + blockDim.x);  // blockDim
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < p * 4; i += blockDim.x) {
+    float acc = 0.0f;
+    for (int b = 0; b < nblocks; ++b) {
+      acc = __fadd_rn(acc, partials[(size_t)b * p * 4 + i]);
+    }
+    mom[i] = acc;
+  }
+  for (int i = tid; i < p * 3; i += blockDim.x) cent[i] = cin[i];
+  for (int k = tid; k < p; k += blockDim.x) sv[k] = valid[k];
+  __syncthreads();
+  for (int k = tid; k < p; k += blockDim.x) {
+    const float h = mom[4 * k];
+    if (h > 0.0f && sv[k]) {
+      for (int j = 0; j < 3; ++j) {
+        cent[3 * k + j] = __fdiv_rn(mom[4 * k + 1 + j], h);
+      }
+    }
+    hs[k] = sv[k] ? h : 1.0f;
+  }
+  __syncthreads();
+
+  for (int ci = 0; ci < p; ++ci) {
+    if (!(sv[ci] && hs[ci] == 0.0f)) continue;  // uniform across the block
+    float bv = -INFINITY;
+    int bi = p;
+    for (int k = tid; k < p; k += blockDim.x) {
+      argmax_merge(bv, bi, sv[k] ? hs[k] : -INFINITY, k, p);
+    }
+    red_v[tid] = bv;
+    red_i[tid] = bi;
+    __syncthreads();
+    for (int off = blockDim.x / 2; off > 0; off >>= 1) {
+      if (tid < off) {
+        float v = red_v[tid];
+        int i = red_i[tid];
+        argmax_merge(v, i, red_v[tid + off], red_i[tid + off], p);
+        red_v[tid] = v;
+        red_i[tid] = i;
+      }
+      __syncthreads();
+    }
+    if (tid == 0) {
+      const int cj = red_i[0] == p ? 0 : red_i[0];
+      const float up[3] = {1.0f + kEps, 1.0f - kEps, 1.0f + kEps};
+      const float dn[3] = {1.0f - kEps, 1.0f + kEps, 1.0f - kEps};
+      float c[3];
+      for (int j = 0; j < 3; ++j) c[j] = cent[3 * cj + j];
+      for (int j = 0; j < 3; ++j) cent[3 * ci + j] = __fmul_rn(c[j], up[j]);
+      for (int j = 0; j < 3; ++j) cent[3 * cj + j] = __fmul_rn(c[j], dn[j]);
+      const float half = __fdiv_rn(hs[cj], 2.0f);
+      hs[ci] = half;
+      hs[cj] = __fadd_rn(hs[cj], -half);
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < p * 3; i += blockDim.x) cout[i] = cent[i];
+}
+
+}  // namespace
+
+// x: (M, 3); w: (M,) or NULL (weight 1); cin/cout: (P, 3); valid: (P,)
+// int32; partials: (nblocks, P, 4) scratch; labels: (M,) or NULL.
+PT_EXPORT int pt_kmeans_step(const float* x, const float* w, const float* cin,
+                             const int* valid, int m, int p, int per_block,
+                             int nblocks, float* partials, int* labels,
+                             float* cout, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem1 = (size_t)p * 16 + (size_t)p * 16 + PT_STAGE * 16 +
+                       (size_t)p * 4 + PT_STAGE * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kmeans_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem1);
+  if (err != cudaSuccess) return (int)err;
+  kmeans_partial<<<nblocks, PT_THREADS, smem1, st>>>(
+      x, w, cin, valid, m, p, per_block, partials, labels);
+  const size_t smem2 =
+      (size_t)p * (4 + 1 + 3 + 1) * 4 + (size_t)kFinalizeThreads * 8;
+  err = cudaFuncSetAttribute(kmeans_finalize,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem2);
+  if (err != cudaSuccess) return (int)err;
+  kmeans_finalize<<<1, kFinalizeThreads, smem2, st>>>(partials, nblocks, cin,
+                                                      cout, valid, p);
+  return (int)cudaGetLastError();
+}

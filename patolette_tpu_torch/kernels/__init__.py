@@ -1,0 +1,20 @@
+"""Hand-written CUDA kernels of the port and their plain-PyTorch twins.
+
+One module per kernel: ``segment`` (K1), ``lq`` (K2), ``assign`` (K3),
+``kmeans`` (K4). Each wrapper takes the twin for tensors on the CPU and
+launches its kernel (or raises) for tensors on the card; ``LAUNCHES``
+counts the kernel launches, so a run can show that its path went through
+them.
+"""
+
+LAUNCHES = {
+    "segment_sum": 0,
+    "lq_candidates": 0,
+    "assign_planar": 0,
+    "kmeans_step": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

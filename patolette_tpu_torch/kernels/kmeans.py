@@ -1,0 +1,105 @@
+"""K4: one fused weighted Lloyd step.
+
+Kernel: ``csrc/kmeans.cu`` (assignment + per-block ``[w, w x]`` partials,
+then one block that sums them, updates the centres and runs the empty-
+cluster split). Twin: the JAX package's loop body
+(``kmeans.py:104-117``) with ``_split_empty`` (``kmeans.py:59-86``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from patolette_tpu_torch import kernels
+from patolette_tpu_torch.kernels import build
+from patolette_tpu_torch.kernels.assign import assign_planar_plain
+from patolette_tpu_torch.kernels.segment import segment_sum_plain
+
+SPLIT_EPS = 1.0 / 1024.0  # Clustering.cpp EPS
+MAX_CENTERS = 4096        # the step keeps (P, 9) floats in shared memory
+PIXELS_PER_BLOCK = 2048
+MAX_BLOCKS = 256
+
+
+def split_empty(centers, hassign, valid):
+    """Empty-cluster handling (Clustering.cpp:216-262), deterministic donor:
+    walks the slots in order; a valid empty slot takes half the mass of the
+    valid cluster of largest mass (first on ties), both moved by +-eps with
+    the even/odd-coordinate sign pattern. Runs on the host in f32 numpy;
+    returns the centres unchanged (no copy) when no slot is empty."""
+    if not bool((valid & (hassign == 0.0)).any()):
+        return centers
+    c = centers.detach().cpu().numpy().astype(np.float32, copy=True)
+    h = hassign.detach().cpu().numpy().astype(np.float32, copy=True)
+    v = valid.detach().cpu().numpy()
+    parity = np.array([1.0, -1.0, 1.0], np.float32)
+    up = np.float32(1.0) + np.float32(SPLIT_EPS) * parity
+    dn = np.float32(1.0) - np.float32(SPLIT_EPS) * parity
+    for ci in range(c.shape[0]):
+        if v[ci] and h[ci] == 0.0:
+            cj = int(np.argmax(np.where(v, h, np.float32(-np.inf))))
+            src = c[cj].copy()
+            c[ci] = src * up
+            c[cj] = src * dn
+            half = h[cj] / np.float32(2.0)
+            h[ci] = half
+            h[cj] = h[cj] + (-half)
+    return torch.from_numpy(c).to(centers.device)
+
+
+def kmeans_step_plain(samples, weights, centers, valid):
+    p = centers.shape[0]
+    labels = assign_planar_plain(
+        (samples[:, 0], samples[:, 1], samples[:, 2]), centers, valid
+    )
+    m = samples.shape[0]
+    w = (torch.ones((m,), dtype=torch.float32, device=samples.device)
+         if weights is None else weights)
+    mom = segment_sum_plain(
+        torch.cat([w[:, None], w[:, None] * samples], dim=-1), labels, p
+    )
+    hassign = mom[:, 0]
+    nonzero = hassign > 0.0
+    new = mom[:, 1:4] / torch.where(nonzero, hassign, 1.0)[:, None]
+    centers = torch.where((nonzero & valid)[:, None], new, centers)
+    centers = split_empty(centers, torch.where(valid, hassign, 1.0), valid)
+    return centers, labels
+
+
+def kmeans_step(samples, weights, centers, valid, return_labels=False):
+    """One Lloyd step; returns the new centres (and the labels it assigned
+    when ``return_labels``)."""
+    if samples.device.type == "cpu":
+        new, labels = kmeans_step_plain(samples, weights, centers, valid)
+        return (new, labels) if return_labels else new
+    m = samples.shape[0]
+    p = centers.shape[0]
+    if samples.dtype != torch.float32 or centers.dtype != torch.float32 or (
+            weights is not None and weights.dtype != torch.float32):
+        raise TypeError("kmeans_step: f32 samples, weights and centers")
+    if (samples.shape != (m, 3) or centers.shape != (p, 3)
+            or valid.shape != (p,)
+            or (weights is not None and weights.shape != (m,))):
+        raise ValueError("kmeans_step: bad shapes")
+    if not 1 <= p <= MAX_CENTERS:
+        raise ValueError(
+            f"kmeans_step: {p} centres; the kernel takes 1..{MAX_CENTERS}"
+        )
+    valid_i = valid.to(torch.int32)
+    build.require_cuda("kmeans_step", samples, weights, centers, valid_i)
+    dev = samples.device
+    nblocks = max(1, min(MAX_BLOCKS, -(-m // PIXELS_PER_BLOCK)))
+    per_block = max(1, -(-m // nblocks))
+    partials = torch.empty((nblocks, p, 4), dtype=torch.float32, device=dev)
+    out = torch.empty((p, 3), dtype=torch.float32, device=dev)
+    labels = (torch.empty((m,), dtype=torch.int32, device=dev)
+              if return_labels else None)
+    err = build.library().pt_kmeans_step(
+        build.ptr(samples), build.ptr(weights), build.ptr(centers),
+        build.ptr(valid_i), m, p, per_block, nblocks, build.ptr(partials),
+        build.ptr(labels), build.ptr(out), build.stream(),
+    )
+    build.check(err, "kmeans_step")
+    kernels.LAUNCHES["kmeans_step"] += 1
+    return (out, labels) if return_labels else out

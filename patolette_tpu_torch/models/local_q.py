@@ -1,0 +1,219 @@
+"""Local quantization (LQ): greedy weighted principal-axis splitting.
+
+Port of ``patolette_tpu/models/local_q.py`` (reference local.c). Turns the
+K <= 12 GQ clusters into up to ``palette_size`` clusters by repeatedly
+splitting the clusters whose candidate split gives the largest weighted-SSE
+benefit ``d - (dl + dr)``; each candidate projects its cluster on its own
+weighted principal axis and takes the 512-bucket cut that maximizes
+``sum_ch csl^2/sl + csr^2/sr``.
+
+Kept from the JAX package: the cached side bit (a cluster's pixel set
+cannot change between its candidate evaluation and its split, so applying
+a split is a mask), the +-4 sigma projection range (S7), float bucket
+masses (Q2), linear binning without the round-robin fallback, the DELTA
+stop, the top-B batch (S6) with its cap and round count, and the left
+child taking the new slot ``count + j``.
+
+The rounds are a Python loop over torch state; the loop reads one integer
+a round (how many clusters split) and stops early. The TPU-only
+constructs (compare-and-select instead of gathers, rank maps instead of
+scatters) are plain gathers and scatters here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from patolette_tpu_torch.kernels.lq import lq_candidates
+from patolette_tpu_torch.ops import eigen3
+from patolette_tpu_torch.ops import moments as M
+
+BUCKET_COUNT = 512
+DELTA = 1e-16
+_EPS = 1e-30
+
+
+class Candidates(NamedTuple):
+    benefit: torch.Tensor    # (C,) split benefit
+    mu: torch.Tensor         # (C, 3) cluster mean
+    axis: torch.Tensor       # (C, 3) principal axis
+    pmin: torch.Tensor       # (C,)
+    pmax: torch.Tensor       # (C,)
+    split: torch.Tensor      # (C,) int32 optimal cut bucket
+    mu_child: torch.Tensor   # (C, 2, 3) left/right child means
+    side: torch.Tensor       # (N,) bool: member left of its cut
+    member: torch.Tensor     # (N,) bool: pixel belongs to a candidate
+
+
+def _candidates_segmented(colors, w, labels, ids, p,
+                          bucket_count=BUCKET_COUNT, mu_known=None):
+    """Candidate splits for a SET of pairwise-disjoint clusters ``ids``
+    ((C,) int; entries equal to ``p`` are dead slots with no pixels).
+
+    Passes 1-2 (means, central moments) are segment sums (K1) keyed by
+    each pixel's candidate slot; passes 3-4 (projection, binning,
+    per-(candidate, bucket) sums) are K2; the per-candidate tail runs on
+    the small ``(C, 512, 5)`` table.
+    """
+    c = ids.shape[0]
+    dev = colors.device
+    slot = torch.full((p + 1,), c, dtype=torch.int32, device=dev)
+    slot[ids.long()] = torch.arange(c, dtype=torch.int32, device=dev)
+    slot[p] = c
+    cand = slot[labels.long()]
+    member = cand < c
+    wm = torch.where(member, w, 0.0)
+
+    if mu_known is None:
+        # Pass 1: weighted means (cluster.c:171-189).
+        m1 = M.segment_matmul(
+            torch.cat([wm[:, None], wm[:, None] * colors], dim=-1), cand, c
+        )
+        mu = m1[:, 1:4] / torch.clamp_min(m1[:, 0:1], _EPS)
+    else:
+        mu = mu_known
+
+    # Pass 2: central moments -> distortion, covariance, principal axis.
+    mu_ext = torch.cat([mu, torch.zeros((1, 3), dtype=mu.dtype, device=dev)])
+    x = colors - mu_ext[cand.long()]
+    mom = M.segment_moments(x, cand, c, weights=wm)
+    w0 = mom[:, M.IDX_W0]
+    d = M.moments_distortion(mom)
+    axis, evals = eigen3.principal_axis(M.moments_cov(mom))
+
+    # Passes 3-4 (K2): +-4 sigma range (S7), projection, binning, sums.
+    sigma = torch.sqrt(torch.clamp_min(evals[:, 2], 0.0))
+    pmax = 4.0 * sigma
+    pmin = -pmax
+    scale = M.bucket_scale(pmax - pmin)
+    tab = torch.cat([mu, axis, pmin[:, None], scale[:, None]], dim=1)
+    bstats, bucket = lq_candidates(colors, wm, cand, tab.contiguous(),
+                                   bucket_count)
+
+    cum = torch.cumsum(bstats, dim=1)
+    sl = cum[..., 0]
+    csl = cum[..., 1:4]
+    cw2l = cum[..., 4]
+    st = cum[:, -1, 0]
+    cst = cum[:, -1, 1:4]
+    w2t = cum[:, -1, 4]
+    sr = st[:, None] - sl
+    csr = cst[:, None, :] - csl
+
+    sl_ok = sl > 0.0
+    sr_ok = sr > 0.0
+    obj = torch.where(
+        sl_ok, M.sum3(csl * csl) / torch.where(sl_ok, sl, 1.0), 0.0
+    ) + torch.where(
+        sr_ok, M.sum3(csr * csr) / torch.where(sr_ok, sr, 1.0), 0.0
+    )
+    s = torch.argmax(obj, dim=1)  # first max (Vector_maxloc)
+
+    ar = torch.arange(c, device=dev)
+    sl_s, csl_s, cw2l_s = sl[ar, s], csl[ar, s], cw2l[ar, s]
+    sl_ok_s = sl_s > 0.0
+    sr_s = st - sl_s
+    sr_ok_s = sr_s > 0.0
+
+    dl = torch.where(
+        sl_ok_s,
+        torch.clamp_min(
+            cw2l_s - M.sum3(csl_s * csl_s) / torch.clamp_min(sl_s, _EPS), 0.0
+        ),
+        0.0,
+    )
+    w2r = w2t - cw2l_s
+    csr_s = cst - csl_s
+    dr = torch.where(
+        sr_ok_s,
+        torch.clamp_min(
+            w2r - M.sum3(csr_s * csr_s) / torch.clamp_min(sr_s, _EPS), 0.0
+        ),
+        0.0,
+    )
+    benefit = torch.clamp_min(d - (dl + dr), 0.0)
+    benefit = torch.where(w0 <= 0.0, 0.0, benefit)
+
+    mu_l = mu + csl_s / torch.clamp_min(sl_s, _EPS)[:, None]
+    mu_r = mu + csr_s / torch.clamp_min(sr_s, _EPS)[:, None]
+    mu_child = torch.stack([mu_l, mu_r], dim=1)
+
+    s32 = s.to(torch.int32)
+    s_ext = torch.cat([s32, torch.zeros((1,), dtype=torch.int32, device=dev)])
+    side = member & (bucket <= s_ext[cand.long()])
+    return Candidates(benefit, mu, axis, pmin, pmax, s32, mu_child, side,
+                      member)
+
+
+def top_b(values, b):
+    """The ``b`` largest values and their indices, ties to the LOWEST index
+    (as ``lax.top_k``); a stable sort, because ``torch.topk`` leaves the
+    tie order unspecified on the card."""
+    order = torch.sort(values, descending=True, stable=True).indices[:b]
+    return values[order], order
+
+
+def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
+                bucket_count=BUCKET_COUNT, batch_splits: int = 1):
+    """Greedy splitting from ``k0`` initial clusters up to
+    ``palette_size``. Returns ``(labels (N,) int32, count)``."""
+    n = colors.shape[0]
+    p = int(palette_size)
+    dev = colors.device
+    w = (torch.ones((n,), dtype=colors.dtype, device=dev)
+         if weights is None else weights.to(colors.dtype))
+    k0 = int(k0)
+    max_k0 = min(12, p)
+
+    ids0 = torch.arange(max_k0, dtype=torch.int32, device=dev)
+    first = _candidates_segmented(colors, w, init_labels, ids0, p,
+                                  bucket_count)
+    benefit = torch.zeros((p,), dtype=colors.dtype, device=dev)
+    mu_child = torch.zeros((p, 2, 3), dtype=colors.dtype, device=dev)
+    benefit[:max_k0] = torch.where(ids0 < k0, first.benefit, 0.0)
+    mu_child[:max_k0] = first.mu_child
+    labels = init_labels.to(torch.int32)
+    side = first.side
+    count = k0
+
+    bsz = max(1, min(int(batch_splits), (p + 15) // 16, p - 1))
+    # Ramp-up headroom: from k0 = 1 it takes ~log2(bsz) doubling rounds
+    # before bsz splits per round are possible.
+    rounds = -(-(p - 1) // bsz) + max(1, bsz).bit_length()
+    j_idx = torch.arange(bsz, dtype=torch.int32, device=dev)
+    for _ in range(rounds):
+        if count >= p:
+            break
+        vals, sel = top_b(benefit, bsz)
+        sel = sel.to(torch.int32)
+        # top-B is value-sorted, so the valid picks form a prefix.
+        valid = (vals >= DELTA) & (j_idx < p - count)
+        m = int(valid.sum())
+        if m == 0:
+            break
+
+        # Relabel: each picked cluster's cached LEFT side moves to slot
+        # count + j (parents are disjoint, so no conflicts).
+        rank = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        rank[sel[:m].long()] = j_idx[:m]
+        jpix = rank[labels.long()]
+        labels = torch.where((jpix >= 0) & side, count + jpix, labels)
+
+        # Left child takes the NEW slot, right child keeps the old one
+        # (local.c:372-379); all 2B children in one candidate pass, their
+        # means from the parents' cumulative bucket sums.
+        ids2b = torch.cat([count + j_idx, sel])
+        valid2 = torch.cat([valid, valid])
+        ids2b = torch.where(valid2, ids2b, p)
+        mu_known = torch.cat([mu_child[sel.long(), 0],
+                              mu_child[sel.long(), 1]])
+        res = _candidates_segmented(colors, w, labels, ids2b, p,
+                                    bucket_count, mu_known=mu_known)
+        side = torch.where(res.member, res.side, side)
+        live = ids2b[valid2].long()
+        benefit[live] = res.benefit[valid2]
+        mu_child[live] = res.mu_child[valid2]
+        count += m
+    return labels, count

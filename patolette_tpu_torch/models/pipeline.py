@@ -1,0 +1,349 @@
+"""Quantization pipeline: the public ``quantize`` API of the port.
+
+One route, modelled on the JAX package's resident full-upload path
+(``patolette_tpu/models/pipeline.py::_quantize_full_upload``):
+
+    sRGB -> working space -> LQ sample draw -> GQ (K1 moments + host f64 DP)
+    -> LQ (K2 with K1) -> centres (K1) -> KMeans (K4) -> ICtCp direct map
+    (K3) -> sRGB palette with [-1, -1, -1] fill.
+
+The image stays on the device as three planar f32 channels; the host
+holds only the options, the 512-bucket GQ moments (for the f64 DP), one
+integer per LQ round and the outputs. Every sample draw is on the host:
+``rng = np.random.default_rng(seed)``, the LQ draw first (the JAX package's
+exact draw, so the two LQ samples are the same pixels), then the KMeans
+draw from the same ``rng`` (the JAX package draws that one with
+``jax.random``; see the README's divergence table).
+
+Not in this slice (each returns a typed failure that names it): dithering,
+saliency weighting (``tile_size > 0`` without ``weights``), ``mesh=``, and
+images beyond the device budget. uint8 input is normalised on the device
+and takes the same direct map (the 24-bit LUT route comes later).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from patolette_tpu_torch.models import global_q as GQ
+from patolette_tpu_torch.models import kmeans as KM
+from patolette_tpu_torch.models import local_q as LQ
+from patolette_tpu_torch.models import palette as PAL
+from patolette_tpu_torch.ops import colorspace as cs
+from patolette_tpu_torch.ops import eigen3
+from patolette_tpu_torch.ops import moments as M
+from patolette_tpu_torch.ops.assign import assign_planar
+from patolette_tpu_torch.utils import errors
+from patolette_tpu_torch.utils.config import ColorSpace, QuantizeOptions
+
+# Per-stage wall times (ms) of the most recent quantize() call.
+LAST_STAGE_TIMES: dict[str, float] = {}
+
+# Device bytes the route holds per pixel: sRGB and working planar channels
+# (24), the ICtCp copy for the map (12), the map (4) and transients (8).
+BYTES_PER_PIXEL = 48
+DEVICE_BUDGET_FRACTION = 0.8
+
+
+def _log(verbose, msg):
+    if verbose:
+        print(f"patolette ======== {msg}", flush=True)
+
+
+class _StageTimer:
+    """Per-stage wall clock into ``LAST_STAGE_TIMES``. With ``sync`` (on
+    under verbose) each lap first waits for the device, so a lap holds its
+    own device time; otherwise laps time the host's enqueue."""
+
+    def __init__(self, verbose, sync, device):
+        self.verbose = verbose
+        self.sync = sync and device.type == "cuda"
+        self.device = device
+        self.t = time.perf_counter()
+        self.laps: dict[str, float] = {}
+        global LAST_STAGE_TIMES
+        LAST_STAGE_TIMES = self.laps
+
+    def lap(self, name):
+        if self.sync:
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        ms = 1e3 * (now - self.t)
+        self.laps[name] = self.laps.get(name, 0.0) + round(ms, 3)
+        if self.verbose:
+            print(f"patolette ======== [{name}] {ms:.1f} ms", flush=True)
+        self.t = now
+
+
+def _resolve_device(device):
+    if device is None:
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device not available; pass device='cpu' to run the plain "
+            "versions of the kernels"
+        )
+    return device
+
+
+def _gq_bucket_stage(colors):
+    """Unweighted global PCA -> bucket sort -> per-bucket moments (K1),
+    shifted by the global mean (quirk Q1; reference global.c:407,418)."""
+    tot = M.total_moments(colors)
+    mean = M.moments_center(tot)
+    axis, _ = eigen3.principal_axis(M.moments_cov(tot))
+    proj = M.project(colors, axis)
+    buckets = M.bucketize(proj, GQ.BUCKET_COUNT, torch.min(proj),
+                          torch.max(proj))
+    bm = M.segment_moments(colors, buckets, GQ.BUCKET_COUNT, shift=mean)
+    return buckets, bm
+
+
+def _lq_stage(colors, weights, buckets, cuts, k0, palette_size,
+              batch_splits):
+    labels0 = GQ.labels_from_cuts(buckets, cuts)
+    labels, count = LQ.lq_quantize(colors, weights, labels0, k0,
+                                   palette_size, batch_splits=batch_splits)
+    centers, mass = PAL.centers_from_labels(colors, weights, labels,
+                                            palette_size)
+    valid = (torch.arange(palette_size, device=colors.device) < count) & (
+        mass > 0.0)
+    return labels, count, centers, valid
+
+
+def _gq_lq_palette(x_lq, w_lq, p, batch_splits, verbose, timer):
+    """GQ (device moments + host f64 DP) then LQ on prepared samples."""
+    buckets, bm = _gq_bucket_stage(x_lq)
+    bm_np = bm.to(torch.float64).cpu().numpy()
+    timer.lap("gq-moments")
+    cuts = GQ.gq_host(bm_np, p)
+    k0 = len(cuts) - 1
+    _log(verbose, f"Base cluster count: {k0}")
+    timer.lap("gq-dp")
+    out = _lq_stage(x_lq, w_lq, buckets, cuts, k0, p,
+                    max(1, int(batch_splits)))
+    timer.lap("lq")
+    return out
+
+
+def _gather(channels, idx):
+    """Planar channels -> interleaved (M, 3) subsample by index."""
+    return torch.stack([ch[idx] for ch in channels], dim=-1).contiguous()
+
+
+def _finish_palette(palette_work, valid, p, csp):
+    """Working-space palette -> sRGB f64 with [-1,-1,-1] fill
+    (patolette.c:328)."""
+    pal_srgb = cs.working_to_srgb(palette_work, csp).cpu().numpy()
+    valid_np = valid.cpu().numpy()
+    palette = np.full((p, 3), -1.0)
+    palette[valid_np] = pal_srgb[valid_np].astype(np.float64)
+    return palette
+
+
+def _upload(colors, device):
+    """(N, 3) host image -> 3 x (N,) f32 sRGB channels in [0, 1] on the
+    device; uint8 goes up as bytes and is normalised there."""
+    if colors.dtype == np.uint8:
+        x = torch.from_numpy(np.ascontiguousarray(colors)).to(device)
+        x = x.to(torch.float32) * np.float32(1.0 / 255.0)
+    else:
+        x = torch.from_numpy(
+            np.ascontiguousarray(colors, dtype=np.float32)).to(device)
+    return tuple(x[:, k].contiguous() for k in range(3))
+
+
+def _device_budget(device):
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+        return int(total * DEVICE_BUDGET_FRACTION)
+    return 1 << 62
+
+
+def quantize(
+    width: int,
+    height: int,
+    colors,
+    palette_size: int,
+    dither: bool = True,
+    palette_only: bool = False,
+    color_space: ColorSpace = ColorSpace.ICtCp,
+    tile_size: float = 512.0,
+    kmeans_niter: int = 32,
+    kmeans_max_samples: int = 512**2,
+    verbose: bool = False,
+    *,
+    weights=None,
+    lq_max_samples: int = 1 << 18,
+    lq_batch_splits: int = 8,
+    dither_segment: int = 4096,
+    seed: int = 1234,
+    mesh=None,
+    device=None,
+    sync_stages: bool = False,
+):
+    """Quantize an image to ``palette_size`` colors.
+
+    Signature and return convention of the JAX package's ``quantize``
+    (reference pyx:332-466): ``(success, palette, palette_map, message)``
+    with ``palette`` a (palette_size, 3) float64 sRGB array ([-1,-1,-1]
+    rows for unused slots) and ``palette_map`` an int32 array of length
+    width*height (None if ``palette_only``).
+
+    ``device``: where the work runs, ``"cuda"`` by default; with no CUDA
+    device the call fails (typed) unless the caller passes ``"cpu"``, which
+    runs the kernels' plain versions. ``sync_stages``: wait for the device
+    at each stage lap, so ``LAST_STAGE_TIMES`` holds device time (also on
+    under ``verbose``).
+
+    Internal failures, and calls this slice does not cover yet, return
+    ``(False, None, None, "Internal quantization error. [Type: detail]")``.
+    """
+    try:
+        return _quantize_body(
+            width, height, colors, palette_size, dither=dither,
+            palette_only=palette_only, color_space=color_space,
+            tile_size=tile_size, kmeans_niter=kmeans_niter,
+            kmeans_max_samples=kmeans_max_samples, verbose=verbose,
+            weights=weights, lq_max_samples=lq_max_samples,
+            lq_batch_splits=lq_batch_splits, seed=seed, mesh=mesh,
+            device=device, sync_stages=sync_stages,
+        )
+    except Exception as e:  # noqa: BLE001 -- the reference's -1 surface
+        msg = errors.exit_code_message(errors.ExitCode.BAD_QUANT)
+        detail = str(e).strip().splitlines()
+        detail = detail[0] if detail else ""
+        return False, None, None, f"{msg} [{type(e).__name__}: {detail}]"
+
+
+def _quantize_body(width, height, colors, palette_size, *, dither,
+                   palette_only, color_space, tile_size, kmeans_niter,
+                   kmeans_max_samples, verbose, weights, lq_max_samples,
+                   lq_batch_splits, seed, mesh, device, sync_stages):
+    colors = np.asarray(colors)
+    if colors.ndim != 2 or colors.shape[1] != 3:
+        ch = colors.shape[1] if colors.ndim == 2 else colors.ndim
+        return False, None, None, errors.BAD_CHANNEL_COUNT.format(ch)
+    if colors.shape[0] != width * height:
+        return False, None, None, errors.COLOR_MISMATCH
+    if tile_size < 0:
+        return False, None, None, errors.BAD_TILE_SIZE
+    code = errors.validate_dims(width, height, palette_size)
+    if code != errors.ExitCode.SUCCESS:
+        return False, None, None, errors.exit_code_message(code)
+
+    if mesh is not None:
+        raise NotImplementedError("mesh= (multi-device) is not ported yet")
+    if dither and not palette_only:
+        raise NotImplementedError(
+            "dithering is not ported yet; pass dither=False"
+        )
+    if weights is None and tile_size > 0:
+        raise NotImplementedError(
+            "saliency weighting is not ported yet; pass tile_size=0 or "
+            "explicit weights="
+        )
+    device = _resolve_device(device)
+    n = width * height
+    if n * BYTES_PER_PIXEL > _device_budget(device):
+        raise NotImplementedError(
+            f"{n} pixels exceed the device budget; strip streaming is not "
+            "ported yet"
+        )
+    return _quantize_resident(
+        colors, n, int(palette_size), palette_only=palette_only,
+        csp=int(color_space), kmeans_niter=int(kmeans_niter),
+        kmeans_max_samples=int(kmeans_max_samples), verbose=verbose,
+        weights=weights, lq_max_samples=int(lq_max_samples),
+        lq_batch_splits=int(lq_batch_splits), seed=int(seed), device=device,
+        timer=_StageTimer(verbose, verbose or sync_stages, device),
+    )
+
+
+def _quantize_resident(colors, n, p, *, palette_only, csp, kmeans_niter,
+                       kmeans_max_samples, verbose, weights, lq_max_samples,
+                       lq_batch_splits, seed, device, timer):
+    """The resident route: planar image on the device end to end."""
+    xp_srgb = _upload(colors, device)
+    w_full = None
+    if weights is not None:
+        w_full = torch.from_numpy(
+            np.ascontiguousarray(weights, dtype=np.float32).reshape(-1)
+        ).to(device)
+    timer.lap("stage-in")
+
+    xp_work = cs.srgb_to_working(xp_srgb, csp)
+    del xp_srgb
+    _log(verbose, "Palette generation")
+
+    rng = np.random.default_rng(seed)
+    if lq_max_samples and n > lq_max_samples:
+        idx = torch.from_numpy(
+            rng.integers(0, n, size=lq_max_samples, dtype=np.int32)
+        ).to(device).long()
+        x_lq = _gather(xp_work, idx)
+        w_lq = None if w_full is None else w_full[idx]
+    else:
+        x_lq = torch.stack(xp_work, dim=-1).contiguous()
+        w_lq = w_full
+    timer.lap("to-working+sample")
+
+    _, _, centers, valid = _gq_lq_palette(
+        x_lq, w_lq, p, lq_batch_splits, verbose, timer
+    )
+
+    if kmeans_niter > 0:
+        _log(verbose, "KMeans refinement")
+        cap = KM.subsample_cap(p, kmeans_max_samples)
+        if n > cap:
+            idx = torch.from_numpy(
+                rng.integers(0, n, size=cap, dtype=np.int32)
+            ).to(device).long()
+            samples = _gather(xp_work, idx)
+            w_km = None if w_full is None else w_full[idx]
+        else:
+            samples = torch.stack(xp_work, dim=-1).contiguous()
+            w_km = w_full
+        centers = KM.lloyd_iterations(samples, w_km, centers, valid,
+                                      kmeans_niter)
+        timer.lap("kmeans")
+
+    palette_map = None
+    if not palette_only:
+        _log(verbose, "NN mapping")
+        xi = cs.working_to_ictcp(xp_work, csp)
+        pi = cs.working_to_ictcp(centers, csp)
+        palette_map = assign_planar(xi, pi, valid).cpu().numpy()
+        timer.lap("nn-map")
+
+    palette = _finish_palette(centers, valid, p, csp)
+    timer.lap("palette-out")
+    return True, palette, palette_map, errors.exit_code_message(
+        errors.ExitCode.SUCCESS
+    )
+
+
+def quantize_options(width, height, colors, palette_size, options=None,
+                     **overrides):
+    """Options-object variant of :func:`quantize`; keyword ``overrides``
+    (including ``device``) take precedence."""
+    opts = options or QuantizeOptions()
+    kw = dict(
+        dither=opts.dither,
+        palette_only=opts.palette_only,
+        color_space=opts.color_space,
+        tile_size=opts.tile_size,
+        kmeans_niter=opts.kmeans_niter,
+        kmeans_max_samples=opts.kmeans_max_samples,
+        verbose=opts.verbose,
+        lq_max_samples=opts.lq_max_samples,
+        lq_batch_splits=opts.lq_batch_splits,
+        dither_segment=opts.dither_segment,
+        seed=opts.seed,
+    )
+    kw.update(overrides)
+    return quantize(width, height, colors, palette_size, **kw)
