@@ -7,19 +7,25 @@ Phases, each printing one JSON line:
   1. device: the card, its power limit, the torch / CUDA / nvcc versions;
   2. build: compiles the kernels from this checkout's csrc/ (nvcc, sm_90a);
   3. kernels: each kernel against its plain-PyTorch version on the card at
-     the main path's shapes (max deviation, label agreement), timed with
+     the main paths' shapes (max deviation, label agreement), timed with
      CUDA events beside the plain version, a PyTorch library call where one
      computes the same function, and the least time the card could take;
   4. e2e: quantize() of a 4K float32 image to 256 colours with 32 KMeans
-     iterations through the kernels (every launch counter must move, two
-     runs must agree bit for bit), the same call on uint8 input, and the
-     golden 96x64 inputs against tests/golden/quantize_golden.npz.
-With ``--profile`` the e2e phase also traces one call with torch.profiler
-(device busy share, kernels by device time). With ``--out DIR`` the ptxas
-report and the profiler table are written to DIR. Then the nvidia-smi
-line, the kernels line and, last, the ok line. Any
-failed check raises and the script exits non-zero; without a CUDA device
-(or without the package beside it) it exits non-zero and prints no result.
+     iterations and no dither or saliency (K1-K4 must launch, two runs
+     must agree bit for bit), the same call on uint8 input;
+  5. e2e-default: the library's default call on the same image (MBD
+     saliency, weighted palette, Riemersma dither; K7, K8, K9, K1, K2 and
+     K4 must launch, two runs must agree bit for bit, the CIELuv MSE must
+     be under half the 216-colour cube's dithered the same way, and the
+     dither must not lose to the undithered map on 8x8 block means),
+     float32 and uint8;
+  6. golden: the 96x64 inputs against tests/golden/quantize_golden.npz.
+With ``--profile`` the e2e phases also trace one call each with
+torch.profiler (device busy share, kernels by device time). With ``--out
+DIR`` the ptxas report and the profiler tables are written to DIR. Then
+the nvidia-smi line, the kernels line and, last, the ok line. Any failed
+check raises and the script exits non-zero; without a CUDA device (or
+without the package beside it) it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -33,6 +39,11 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEV = "cuda"
+# The main paths' shapes: a 4K image, 2^18 palette samples, 256 colours,
+# and the palette size above K4's shared-memory table.
+W, H = 3840, 2160
+N_SAMPLES = 1 << 18
+P_LARGE = 8192
 
 
 def _out_dir():
@@ -149,7 +160,7 @@ def kernel_k1(torch, rows):
                                                      segment_sum_plain)
     from patolette_tpu_torch.ops import moments as M
 
-    n = 1 << 18
+    n = N_SAMPLES
     x = _working_pixels(torch, n, 1)
     for s, f in ((512, 11), (256, 4)):
         g = torch.Generator(device=DEV).manual_seed(s)
@@ -186,7 +197,7 @@ def kernel_k2(torch, rows):
     from patolette_tpu_torch.ops import eigen3
     from patolette_tpu_torch.ops import moments as M
 
-    n, c, nb = 1 << 18, 16, 512
+    n, c, nb = N_SAMPLES, 16, 512
     x = _working_pixels(torch, n, 2)
     g = torch.Generator(device=DEV).manual_seed(3)
     cand = torch.randint(0, c + 1, (n,), generator=g, device=DEV,
@@ -230,7 +241,7 @@ def kernel_k3(torch, rows):
     from patolette_tpu_torch.kernels.assign import (assign_planar,
                                                     assign_planar_plain)
 
-    n, p = 3840 * 2160, 256
+    n, p = W * H, 256
     x = _working_pixels(torch, n, 4)
     chans = tuple(x[:, k].contiguous() for k in range(3))
     g = torch.Generator(device=DEV).manual_seed(5)
@@ -258,7 +269,7 @@ def kernel_k4(torch, rows):
     from patolette_tpu_torch.kernels.kmeans import (kmeans_step,
                                                     kmeans_step_plain)
 
-    m, p, iters = 1 << 18, 256, 4
+    m, p, iters = N_SAMPLES, 256, 4
     x = _working_pixels(torch, m, 6)
     g = torch.Generator(device=DEV).manual_seed(7)
     c0 = x[torch.randint(0, m, (p,), generator=g, device=DEV)].clone()
@@ -299,12 +310,148 @@ def kernel_k4(torch, rows):
                      bound_by=by))
 
 
+def kernel_k4_large(torch, rows):
+    """K4 above the shared-memory table (P_LARGE): centres tiled through
+    shared memory, per-block tables and the finalize in device memory."""
+    from patolette_tpu_torch.kernels.kmeans import (kmeans_step,
+                                                    kmeans_step_plain)
+
+    m, p = N_SAMPLES, P_LARGE
+    x = _working_pixels(torch, m, 8)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    c0 = x[torch.randint(0, m, (p,), generator=g, device=DEV)].clone()
+    far = [10, p // 2, p - 100]
+    c0[far] = 5.0  # valid slots no sample is near: splits
+    valid = torch.ones(p, dtype=torch.bool, device=DEV)
+    valid[-2:] = False
+    c_k, l_k = kmeans_step(x, None, c0, valid, return_labels=True)
+    c_t, l_t = kmeans_step_plain(x, None, c0, valid)
+    c_k2 = kmeans_step(x, None, c0, valid)
+    torch.cuda.synchronize()
+    agree = _agreement(l_k, l_t)
+    check(agree == 1.0, f"K4[{p}] labels agree only {agree}")
+    err = float((c_k - c_t).abs().max())
+    # same labels; cluster sums of ~32 samples in two orders
+    check(err <= 1e-6, f"K4[{p}] centres deviate {err}")
+    check(bool((c_k[far[1]] - 5.0).abs().max() > 1.0), f"K4[{p}] no split")
+    check(torch.equal(c_k, c_k2), f"K4[{p}] not deterministic")
+    ms = time_ms(lambda: kmeans_step(x, None, c0, valid))
+    plain = time_ms(lambda: kmeans_step_plain(x, None, c0, valid), reps=3,
+                    warm=1)
+    b, by = bound_ms(m * 12 + p * 12 * 2 + p * 4,
+                     m * int(valid.sum()) * 7 + m * 4)
+    rows.append(dict(name=f"kmeans_step[{p}]", shape=[m, p],
+                     label_agreement=agree, max_abs_err=err, ms=ms,
+                     plain_ms=plain, library_ms=None, bound_ms=b,
+                     bound_by=by))
+
+
+def kernel_k7(torch, rows):
+    from patolette_tpu_torch.kernels.hilbert import (hilbert_keys,
+                                                     hilbert_keys_plain)
+    from patolette_tpu_torch.ops import hilbert
+
+    w, h = W, H
+    order = hilbert.curve_order(w, h)
+    got = hilbert_keys(w, h, order, DEV)
+    twin = hilbert_keys_plain(w, h, order, DEV)
+    perm = hilbert.pixel_visit_order(w, h, DEV)
+    torch.cuda.synchronize()
+    check(torch.equal(got, twin), "K7 keys differ from the plain version")
+    check(torch.equal(perm.long(), torch.argsort(twin)),
+          "K7 permutation differs")
+    seen = torch.zeros(w * h, dtype=torch.bool, device=DEV)
+    seen[perm.long()] = True
+    check(bool(seen.all()), "K7 permutation is not a bijection")
+    ms = time_ms(lambda: hilbert_keys(w, h, order, DEV))
+    plain = time_ms(lambda: hilbert_keys_plain(w, h, order, DEV), reps=3,
+                    warm=1)
+    b, by = bound_ms(w * h * 8, 0)
+    rows.append(dict(name="hilbert_keys", shape=[w, h, order],
+                     max_abs_err=float((got != twin).sum()), ms=ms,
+                     plain_ms=plain, library_ms=None, bound_ms=b,
+                     bound_by=by))
+
+
+def _linear_image(torch, w, h):
+    """The synthetic 4K image in linear Rec2020 planes on the card."""
+    from patolette_tpu_torch.ops import colorspace as cs
+
+    x = torch.from_numpy(synth_image_f32(w, h)).to(DEV)
+    return tuple(ch.contiguous() for ch in cs.srgb_to_linear_rec2020(
+        tuple(x[:, k] for k in range(3))))
+
+
+def kernel_k8(torch, rows):
+    from patolette_tpu_torch.kernels.dither import (dither_scan,
+                                                    dither_scan_plain,
+                                                    lane_shape,
+                                                    palette_table)
+    from patolette_tpu_torch.ops import hilbert
+
+    w, h, p, seg = W, H, 256, 4096
+    n = w * h
+    ch = _linear_image(torch, w, h)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    pick = torch.randint(0, n, (p,), generator=g, device=DEV)
+    pal = torch.stack([c[pick] for c in ch], 1)
+    valid = torch.ones(p, dtype=torch.bool, device=DEV)
+    valid[-3:] = False
+    table = palette_table(pal, valid)
+    perm = hilbert.pixel_visit_order(w, h, DEV)
+    got = dither_scan(ch, perm, table, seg)
+    twin = dither_scan_plain(ch, perm, table, seg)
+    again = dither_scan(ch, perm, table, seg)
+    torch.cuda.synchronize()
+    agree = _agreement(got, twin)
+    check(agree == 1.0, f"K8 labels agree only {agree}")
+    check(torch.equal(got, again), "K8 not deterministic")
+    check(not bool((got >= p - 3).any()), "K8 chose an invalid slot")
+    ms = time_ms(lambda: dither_scan(ch, perm, table, seg))
+    plain = time_ms(lambda: dither_scan_plain(ch, perm, table, seg), reps=1,
+                    warm=0)
+    kv = int(valid.sum())
+    b, by = bound_ms(n * (12 + 4 + 4) + p * 32,
+                     n * (7 * kv + 2 * 3 * 16 + 9))
+    rows.append(dict(name="dither_scan", shape=[n, p, seg],
+                     lanes=lane_shape(n, seg)[1], label_agreement=agree,
+                     max_abs_err=float((got != twin).sum()), ms=ms,
+                     plain_ms=plain, library_ms=None, bound_ms=b,
+                     bound_by=by))
+
+
+def kernel_k9(torch, rows):
+    from patolette_tpu_torch.kernels.mbd import mbd, mbd_plain
+
+    rows_, cols = H, W
+    x = torch.from_numpy(synth_image_f32(cols, rows_)).to(DEV)
+    img = (x.sum(1) * (1.0 / 3.0)).reshape(rows_, cols).contiguous()
+    got = mbd(img, return_lu=True)
+    twin = mbd_plain(img)
+    again = mbd(img)
+    torch.cuda.synchronize()
+    for name, a, t in zip("dlu", got, twin):
+        check(torch.equal(a, t), f"K9 {name} differs from the plain version")
+    check(torch.equal(got[0], again), "K9 not deterministic")
+    ms = time_ms(lambda: mbd(img))
+    plain = time_ms(lambda: mbd_plain(img), reps=1, warm=0)
+    n = rows_ * cols
+    b, by = bound_ms(3 * 7 * 4 * n, 3 * 8 * n)
+    rows.append(dict(name="mbd", shape=[rows_, cols], max_abs_err=0.0,
+                     ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
+                     bound_by=by))
+
+
 def phase_kernels(torch):
     rows = []
     kernel_k1(torch, rows)
     kernel_k2(torch, rows)
     kernel_k3(torch, rows)
     kernel_k4(torch, rows)
+    kernel_k4_large(torch, rows)
+    kernel_k7(torch, rows)
+    kernel_k8(torch, rows)
+    kernel_k9(torch, rows)
     for r in rows:
         emit(dict(phase="kernel", **r))
     return rows
@@ -363,7 +510,7 @@ def _golden_image(w=96, h=64, seed=11):
     return np.clip(img, 0, 1).reshape(-1, 3)
 
 
-def _profile_call(torch, call):
+def _profile_call(torch, call, name):
     """One traced call: device busy share and the kernels by device time
     (torch.profiler, CUDA activity); the table goes to ``--out``."""
     from torch.profiler import ProfilerActivity, profile
@@ -384,23 +531,82 @@ def _profile_call(torch, call):
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     out_dir = _out_dir()
     if out_dir is not None:
-        (out_dir / "profile.txt").write_text(prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=40))
-    emit({"phase": "profile", "wall_ms": wall_us / 1e3,
+        (out_dir / f"profile_{name}.txt").write_text(
+            prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=40))
+    emit({"phase": "profile", "call": name, "wall_ms": wall_us / 1e3,
           "device_ms": device_us / 1e3,
           "device_busy_share": device_us / wall_us,
           "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                   for e in top]})
 
 
-def phase_e2e(torch, profile=False):
+# Kernels each path must launch (names of kernels.LAUNCHES).
+MAIN_PATH_KERNELS = ("segment_sum", "lq_candidates", "assign_planar",
+                     "kmeans_step")
+DEFAULT_PATH_KERNELS = ("hilbert_keys", "dither_scan", "mbd", "segment_sum",
+                        "lq_candidates", "kmeans_step")
+
+
+def _drive(torch, run, colors, path_kernels, what):
+    """Warm up, then one call between a reset and a read of the launch
+    counts (each kernel of the path must have launched), then two more
+    timed calls that must give the same bits, then one with synced laps."""
     import numpy as np
 
-    import patolette_tpu_torch as pt
     from patolette_tpu_torch import kernels
     from patolette_tpu_torch.models import pipeline
 
-    w, h, p = 3840, 2160, 256
+    t0 = time.perf_counter()
+    run(colors)
+    warm_s = time.perf_counter() - t0
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pal, pmap = run(colors)
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name in path_kernels:
+        check(launches[name] > 0, f"kernel {name} not launched on {what}")
+    walls, laps = [first_s], [dict(pipeline.LAST_STAGE_TIMES)]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pal2, pmap2 = run(colors)
+        walls.append(time.perf_counter() - t0)
+        laps.append(dict(pipeline.LAST_STAGE_TIMES))
+        check(np.array_equal(pal, pal2) and np.array_equal(pmap, pmap2),
+              f"two runs of {what} differ")
+    torch.cuda.reset_peak_memory_stats()
+    run(colors, sync_stages=True)
+    synced = dict(pipeline.LAST_STAGE_TIMES)
+    peak = torch.cuda.max_memory_allocated()
+    best = min(walls)
+    return pal, pmap, dict(
+        warmup_s=warm_s, wall_s=walls, best_s=best,
+        stage_ms=laps[walls.index(best)], stage_ms_synced=synced,
+        launches=launches, peak_device_bytes=peak)
+
+
+def _check_outputs(pal, pmap, p, n):
+    import numpy as np
+
+    check(pal.shape == (p, 3) and pmap.shape == (n,), "bad shapes")
+    check(pmap.dtype == np.int32 and pmap.min() >= 0 and pmap.max() < p,
+          "bad map")
+    used = pal[:, 0] >= 0
+    check(np.isfinite(pal).all() and (pal[used] <= 1).all()
+          and (pal[used] >= 0).all() and used[np.unique(pmap)].all(),
+          "bad palette")
+    return int(used.sum())
+
+
+def phase_e2e(torch, profile=False):
+    """The undithered main path (K1-K4), float32 and uint8."""
+    import numpy as np
+
+    import patolette_tpu_torch as pt
+
+    w, h, p = W, H, 256
     img = synth_image_f32(w, h)
     kw = dict(dither=False, tile_size=0, kmeans_niter=32,
               color_space=pt.ColorSpace_ICtCp)
@@ -410,35 +616,9 @@ def phase_e2e(torch, profile=False):
         check(ok, f"quantize failed: {msg}")
         return pal, pmap
 
-    t0 = time.perf_counter()
-    run(img)
-    warm_s = time.perf_counter() - t0
-
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    pal, pmap = run(img)
-    first_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} not launched on the main path")
-    walls, laps = [first_s], [dict(pipeline.LAST_STAGE_TIMES)]
-    for _ in range(2):
-        t0 = time.perf_counter()
-        pal2, pmap2 = run(img)
-        walls.append(time.perf_counter() - t0)
-        laps.append(dict(pipeline.LAST_STAGE_TIMES))
-    check(np.array_equal(pal, pal2) and np.array_equal(pmap, pmap2),
-          "two runs differ")
-    run(img, sync_stages=True)
-    synced = dict(pipeline.LAST_STAGE_TIMES)
-
-    check(pal.shape == (p, 3) and pmap.shape == (w * h,), "bad shapes")
-    check(pmap.dtype == np.int32 and pmap.min() >= 0 and pmap.max() < p,
-          "bad map")
-    used = pal[:, 0] >= 0
-    check(np.isfinite(pal).all() and (pal[used] <= 1).all()
-          and (pal[used] >= 0).all() and used[np.unique(pmap)].all(),
-          "bad palette")
+    pal, pmap, stats = _drive(torch, run, img, MAIN_PATH_KERNELS,
+                              "the main path")
+    used = _check_outputs(pal, pmap, p, w * h)
     mse, mse_cube = _mse_luv(torch, img, pal, pmap)
     check(np.isfinite(mse) and mse < 0.5 * mse_cube,
           f"CIELuv MSE {mse} against {mse_cube} for the 216-colour cube")
@@ -453,22 +633,141 @@ def phase_e2e(torch, profile=False):
           f"uint8 CIELuv MSE {mse8} against {cube8} for the cube")
 
     if profile:
-        _profile_call(torch, lambda: run(img))
+        _profile_call(torch, lambda: run(img), "main")
 
-    best = min(walls)
     emit({"phase": "e2e", "shape": [w, h], "palette": p, "kmeans_niter": 32,
-          "warmup_s": warm_s, "wall_s": walls, "best_s": best,
-          "mp_per_s": w * h / 1e6 / best, "stage_ms": laps[walls.index(best)],
-          "stage_ms_synced": synced, "launches": launches,
+          **stats, "mp_per_s": w * h / 1e6 / stats["best_s"],
           "cieluv_mse": mse, "cieluv_mse_cube216": mse_cube,
-          "palette_used": int(used.sum()),
-          "uint8_wall_s": u8_s, "uint8_cieluv_mse": mse8,
+          "palette_used": used, "uint8_wall_s": u8_s,
+          "uint8_cieluv_mse": mse8, "bit_identical_runs": True})
+    return stats["launches"]
+
+
+def _block_mse_luv(torch, colors, pal, pmap, w, h, block=8):
+    """CIELuv MSE between the 8x8 block means of the image and of
+    ``pal[pmap]``: what an eye sees from a distance, and what dithering
+    buys over the nearest colour."""
+    from patolette_tpu_torch.ops import colorspace as cs
+
+    x = torch.from_numpy(colors.astype("float32")).to(DEV)
+    pl = torch.from_numpy(pal.astype("float32")).to(DEV)
+    idx = torch.from_numpy(pmap.astype("int64")).to(DEV)
+
+    def means(v):
+        luv = cs.srgb_to_working(v, 1).reshape(h // block, block,
+                                               w // block, block, 3)
+        return luv.mean(dim=(1, 3))
+
+    return float(((means(x) - means(pl[idx])) ** 2).sum(-1).mean())
+
+
+def _direct_map(torch, colors, pal):
+    """Nearest palette entry in ICtCp (K3) for the same palette."""
+    from patolette_tpu_torch.ops import colorspace as cs
+    from patolette_tpu_torch.ops.assign import assign_planar
+
+    x = torch.from_numpy(colors.astype("float32")).to(DEV)
+    used = torch.from_numpy(pal[:, 0] >= 0).to(DEV)
+    pl = torch.from_numpy(pal.astype("float32")).to(DEV).clamp(0.0, 1.0)
+    xi = cs.srgb_to_working(tuple(x[:, k] for k in range(3)), 2)
+    return assign_planar(xi, cs.srgb_to_working(pl, 2), used).cpu().numpy()
+
+
+def _cube_dithered_mse(torch, colors, w, h):
+    """CIELuv MSE of the image dithered (ICtCp, default segment) against
+    the 216-colour uniform sRGB cube: the yardstick of a dithered map,
+    whose per-pixel error is by design several times the nearest
+    colour's."""
+    import numpy as np
+
+    from patolette_tpu_torch.models import dither
+    from patolette_tpu_torch.ops import colorspace as cs
+
+    g = np.arange(6, dtype=np.float32) / np.float32(5.0)
+    cube = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    x = torch.from_numpy(colors.astype("float32")).to(DEV)
+    xw = cs.srgb_to_working(tuple(x[:, k] for k in range(3)), 2)
+    cw = cs.srgb_to_working(torch.from_numpy(cube).to(DEV), 2)
+    cmap = dither.riemersma_dither_planar(
+        xw, cw, torch.ones(216, dtype=torch.bool, device=DEV), w, h, 2)
+    return _mse_luv(torch, colors, cube, cmap.cpu().numpy())[0]
+
+
+def phase_e2e_default(torch, profile=False):
+    """The library's default call (saliency, dither), float32 and uint8."""
+    import numpy as np
+
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch import kernels
+
+    w, h, p = W, H, 256
+    img = synth_image_f32(w, h)
+
+    def run(colors, **extra):
+        ok, pal, pmap, msg = pt.quantize(w, h, colors, p, **extra)
+        check(ok, f"default quantize failed: {msg}")
+        return pal, pmap
+
+    pal, pmap, stats = _drive(torch, run, img, DEFAULT_PATH_KERNELS,
+                              "the default call")
+    used = _check_outputs(pal, pmap, p, w * h)
+    mse, mse_cube = _mse_luv(torch, img, pal, pmap)
+    mse_cube_dith = _cube_dithered_mse(torch, img, w, h)
+    check(np.isfinite(mse) and mse < 0.5 * mse_cube_dith,
+          f"dithered CIELuv MSE {mse} against {mse_cube_dith} for the "
+          "dithered cube")
+    direct = _direct_map(torch, img, pal)
+    mse_direct = _mse_luv(torch, img, pal, direct)[0]
+    block = _block_mse_luv(torch, img, pal, pmap, w, h)
+    block_direct = _block_mse_luv(torch, img, pal, direct, w, h)
+    check(block <= block_direct,
+          f"8x8 block-mean CIELuv error {block} of the dither against "
+          f"{block_direct} for the undithered map")
+
+    img_u8 = np.round(img * 255.0).astype(np.uint8)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pal8, pmap8 = run(img_u8)
+    u8_s = time.perf_counter() - t0
+    launches8 = dict(kernels.LAUNCHES)
+    for name in DEFAULT_PATH_KERNELS:
+        check(launches8[name] > 0, f"kernel {name} not launched (uint8)")
+    pal8b, pmap8b = run(img_u8)
+    check(np.array_equal(pal8, pal8b) and np.array_equal(pmap8, pmap8b),
+          "two uint8 default calls differ")
+    x8 = img_u8.astype(np.float32) / 255.0
+    mse8 = _mse_luv(torch, x8, pal8, pmap8)[0]
+    cube8 = _cube_dithered_mse(torch, x8, w, h)
+    check(np.isfinite(mse8) and mse8 < 0.5 * cube8,
+          f"uint8 dithered CIELuv MSE {mse8} against {cube8}")
+    block8 = _block_mse_luv(torch, x8, pal8, pmap8, w, h)
+    block8_direct = _block_mse_luv(torch, x8, pal8,
+                                   _direct_map(torch, x8, pal8), w, h)
+    check(block8 <= block8_direct,
+          f"uint8 8x8 block-mean error {block8} against {block8_direct}")
+
+    if profile:
+        _profile_call(torch, lambda: run(img), "default")
+
+    emit({"phase": "e2e-default", "shape": [w, h], "palette": p,
+          "kmeans_niter": 32, "dither_segment": 4096, "tile_size": 512.0,
+          **stats, "mp_per_s": w * h / 1e6 / stats["best_s"],
+          "peak_device_bytes_per_pixel": stats["peak_device_bytes"] / (w * h),
+          "cieluv_mse": mse, "cieluv_mse_cube216": mse_cube,
+          "cieluv_mse_cube216_dithered": mse_cube_dith,
+          "cieluv_mse_undithered": mse_direct,
+          "block8_cieluv_mse": block, "block8_cieluv_mse_undithered":
+          block_direct, "palette_used": used, "uint8_wall_s": u8_s,
+          "uint8_launches": launches8, "uint8_cieluv_mse": mse8,
+          "uint8_cieluv_mse_cube216_dithered": cube8,
+          "uint8_block8_cieluv_mse": block8,
+          "uint8_block8_cieluv_mse_undithered": block8_direct,
           "bit_identical_runs": True})
-    return launches
+    return stats["launches"]
 
 
 def phase_golden(torch):
-    """Small-input reference: the golden configs of the main path."""
+    """Small-input reference: the four golden configs."""
     import numpy as np
 
     import patolette_tpu_torch as pt
@@ -476,13 +775,17 @@ def phase_golden(torch):
     golden = np.load(ROOT / "tests" / "golden" / "quantize_golden.npz")
     out = {"phase": "golden"}
     for name, p, kw in (
-        ("cieluv_plain", 32, dict(kmeans_niter=0,
+        ("cieluv_plain", 32, dict(dither=False, tile_size=0, kmeans_niter=0,
                                   color_space=pt.ColorSpace_CIELuv)),
-        ("ictcp_kmeans8", 24, dict(kmeans_niter=8,
+        ("ictcp_kmeans8", 24, dict(dither=False, tile_size=0, kmeans_niter=8,
                                    color_space=pt.ColorSpace_ICtCp)),
+        ("srgb_saliency", 16, dict(dither=False, tile_size=256,
+                                   kmeans_niter=0,
+                                   color_space=pt.ColorSpace_sRGB)),
+        ("ictcp_dither", 16, dict(dither=True, tile_size=0, kmeans_niter=4,
+                                  color_space=pt.ColorSpace_ICtCp)),
     ):
-        ok, pal, pmap, msg = pt.quantize(96, 64, _golden_image(), p,
-                                         dither=False, tile_size=0, **kw)
+        ok, pal, pmap, msg = pt.quantize(96, 64, _golden_image(), p, **kw)
         check(ok, msg)
         err = float(np.abs(pal - golden[f"{name}__palette"]).max())
         hist = np.bincount(pmap, minlength=p)
@@ -490,10 +793,31 @@ def phase_golden(torch):
         out[name] = {"palette_max_abs_err": err, "hist_l1": moved}
         # the card sums in another order than the CPU: a palette entry
         # may move by a few ulps of the PQ curve, a handful of pixels
-        # may change entry at near-ties
+        # may change entry at near-ties; under the dither a changed
+        # near-tie carries on down the error queue, so more pixels move
+        limit = 0.02 if kw["dither"] else 0.005
         check(err <= 1e-3, f"golden {name}: palette deviates {err}")
-        check(moved <= 0.005 * len(pmap), f"golden {name}: {moved} moved")
+        check(moved <= limit * len(pmap), f"golden {name}: {moved} moved")
     emit(out)
+
+
+# kernel -> (source, the JAX function it replaces, the path it belongs to)
+SOURCES = {
+    "segment_sum": ("patolette_tpu_torch/csrc/segment_sum.cu",
+                    "patolette_tpu/ops/moments.py:108", "main"),
+    "lq_candidates": ("patolette_tpu_torch/csrc/lq_candidates.cu",
+                      "patolette_tpu/models/local_q.py:87", "main"),
+    "assign_planar": ("patolette_tpu_torch/csrc/assign.cu",
+                      "patolette_tpu/ops/assign.py:81", "main"),
+    "kmeans_step": ("patolette_tpu_torch/csrc/kmeans.cu",
+                    "patolette_tpu/models/kmeans.py:104", "main"),
+    "hilbert_keys": ("patolette_tpu_torch/csrc/hilbert.cu",
+                     "patolette_tpu/ops/hilbert.py:31", "default"),
+    "dither_scan": ("patolette_tpu_torch/csrc/dither.cu",
+                    "patolette_tpu/models/dither.py:144", "default"),
+    "mbd": ("patolette_tpu_torch/csrc/mbd.cu",
+            "patolette_tpu/models/saliency.py:62", "default"),
+}
 
 
 def main():
@@ -516,26 +840,18 @@ def main():
     info = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch)
-    launches = phase_e2e(torch, profile="--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    launches = {"main": phase_e2e(torch, profile=profile),
+                "default": phase_e2e_default(torch, profile=profile)}
     phase_golden(torch)
 
-    sources = {
-        "segment_sum": ("patolette_tpu_torch/csrc/segment_sum.cu",
-                        "patolette_tpu/ops/moments.py:108"),
-        "lq_candidates": ("patolette_tpu_torch/csrc/lq_candidates.cu",
-                          "patolette_tpu/models/local_q.py:87"),
-        "assign_planar": ("patolette_tpu_torch/csrc/assign.cu",
-                          "patolette_tpu/ops/assign.py:81"),
-        "kmeans_step": ("patolette_tpu_torch/csrc/kmeans.cu",
-                        "patolette_tpu/models/kmeans.py:104"),
-    }
     line = []
     for r in rows:
         key = r["name"].split("[")[0]
-        src, replaces = sources[key]
+        src, replaces, path = SOURCES[key]
         line.append({
             "name": r["name"], "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces, "launches": launches[path][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

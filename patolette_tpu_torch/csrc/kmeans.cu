@@ -21,13 +21,38 @@
 // TFLOP/s; the bytes (3.1 MB of samples and weights) take ~1 us. The
 // sequential split walk is latency, not throughput: it runs only for the
 // slots that are empty, each a block-wide argmax.
+//
+// Any palette size: the centres pass through shared memory in tiles of
+// kTile (a sample's running minimum carries across tiles, strict <, so the
+// lowest index still wins ties), and a (P, 4) table that does not fit in
+// shared memory (P > kSmemTable) is kept in the block's own slice of the
+// partials in device memory, with the same owner scans. The finalize's
+// (P, 4) sums and (P,) masses move to device scratch the same way; the
+// centres are updated in place in the output.
 #include "common.cuh"
 
 namespace {
 
 constexpr float kEps = 1.0f / 1024.0f;
 constexpr int kFinalizeThreads = 1024;
+constexpr int kTile = 2048;        // centres per shared-memory tile
+constexpr int kSmemTable = 4096;   // largest P whose tables are shared
 
+__device__ __forceinline__ void load_centres(float4* sc, int* sv,
+                                             const float* __restrict__ c,
+                                             const int* __restrict__ valid,
+                                             int t0, int cnt) {
+  for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
+    const int g = t0 + k;
+    const float c0 = c[3 * g], c1 = c[3 * g + 1], c2 = c[3 * g + 2];
+    sc[k] = make_float4(c0, c1, c2, pt_norm2(c0, c1, c2));
+    sv[k] = valid[g];
+  }
+}
+
+// kShared: the (P, 4) table lives in shared memory (P <= kSmemTable); a
+// template parameter, so the table's address space is known statically.
+template <bool kShared>
 __global__ void kmeans_partial(const float* __restrict__ x,
                                const float* __restrict__ w,
                                const float* __restrict__ centers,
@@ -35,48 +60,61 @@ __global__ void kmeans_partial(const float* __restrict__ x,
                                int per_block, float* __restrict__ partials,
                                int* __restrict__ labels) {
   extern __shared__ float4 smem4[];
-  float4* sc = smem4;                              // p
-  float* table = (float*)(sc + p);                 // p * 4
-  float* stage = table + (size_t)p * 4;            // PT_STAGE * 4
-  int* sv = (int*)(stage + PT_STAGE * 4);          // p
-  int* skey = sv + p;                              // PT_STAGE
+  const int tile = min(p, kTile);
+  const bool resident = p <= kTile;
+  float4* sc = smem4;                                // tile
+  int* sv = (int*)(sc + tile);                       // tile
+  float* stage = (float*)(sv + ((tile + 3) & ~3));   // PT_STAGE * 4
+  int* skey = (int*)(stage + PT_STAGE * 4);          // PT_STAGE
+  float* table = kShared ? (float*)(skey + PT_STAGE)  // p * 4
+                         : partials + (size_t)blockIdx.x * p * 4;
 
   const int tid = threadIdx.x;
-  for (int k = tid; k < p; k += blockDim.x) {
-    const float c0 = centers[3 * k], c1 = centers[3 * k + 1],
-                c2 = centers[3 * k + 2];
-    sc[k] = make_float4(c0, c1, c2, pt_norm2(c0, c1, c2));
-    sv[k] = valid[k];
-    table[4 * k] = table[4 * k + 1] = table[4 * k + 2] = table[4 * k + 3] =
-        0.0f;
-  }
+  for (int i = tid; i < p * 4; i += blockDim.x) table[i] = 0.0f;
+  if (resident) load_centres(sc, sv, centers, valid, 0, p);
 
   const int start = blockIdx.x * per_block;
   const int end = min(m, start + per_block);
   for (int base = start; base < end; base += PT_STAGE) {
     const int cnt = min(PT_STAGE, end - base);
     __syncthreads();
-    for (int i = tid; i < cnt; i += blockDim.x) {
-      const int q = base + i;
-      const float xa = x[3 * (size_t)q], xb = x[3 * (size_t)q + 1],
-                  xc = x[3 * (size_t)q + 2];
-      float best = INFINITY;
-      int lbl = 0;
-      for (int k = 0; k < p; ++k) {
-        if (!sv[k]) continue;
-        const float d = pt_dist(xa, xb, xc, sc[k]);
-        if (d < best) {
-          best = d;
-          lbl = k;
+    // one staged sample per thread (blockDim == PT_STAGE)
+    const int q = base + tid;
+    const bool own = tid < cnt;
+    float xa = 0.0f, xb = 0.0f, xc = 0.0f;
+    if (own) {
+      xa = x[3 * (size_t)q];
+      xb = x[3 * (size_t)q + 1];
+      xc = x[3 * (size_t)q + 2];
+    }
+    float best = INFINITY;
+    int lbl = 0;
+    for (int t0 = 0; t0 < p; t0 += tile) {
+      const int tcnt = min(tile, p - t0);
+      if (!resident) {
+        __syncthreads();
+        load_centres(sc, sv, centers, valid, t0, tcnt);
+        __syncthreads();
+      }
+      if (own) {
+        for (int k = 0; k < tcnt; ++k) {
+          if (!sv[k]) continue;
+          const float d = pt_dist(xa, xb, xc, sc[k]);
+          if (d < best) {
+            best = d;
+            lbl = t0 + k;
+          }
         }
       }
+    }
+    if (own) {
       const float wq = w ? w[q] : 1.0f;
-      float* s = stage + i * 4;
+      float* s = stage + tid * 4;
       s[0] = wq;
       s[1] = __fmul_rn(wq, xa);
       s[2] = __fmul_rn(wq, xb);
       s[3] = __fmul_rn(wq, xc);
-      skey[i] = lbl;
+      skey[tid] = lbl;
       if (labels) labels[q] = lbl;
     }
     __syncthreads();
@@ -90,9 +128,11 @@ __global__ void kmeans_partial(const float* __restrict__ x,
       }
     }
   }
-  __syncthreads();
-  float* dst = partials + (size_t)blockIdx.x * p * 4;
-  for (int i = tid; i < p * 4; i += blockDim.x) dst[i] = table[i];
+  if (kShared) {
+    __syncthreads();
+    float* dst = partials + (size_t)blockIdx.x * p * 4;
+    for (int i = tid; i < p * 4; i += blockDim.x) dst[i] = table[i];
+  }
 }
 
 // (v1, i1) <- better of itself and (v2, i2): larger value, then lower index;
@@ -106,17 +146,21 @@ __device__ __forceinline__ void argmax_merge(float& v1, int& i1, float v2,
   }
 }
 
+template <bool kShared>
 __global__ void kmeans_finalize(const float* __restrict__ partials,
                                 int nblocks, const float* __restrict__ cin,
                                 float* __restrict__ cout,
-                                const int* __restrict__ valid, int p) {
+                                const int* __restrict__ valid, int p,
+                                float* gmom, float* ghs) {
+  __shared__ float red_v[kFinalizeThreads];
+  __shared__ int red_i[kFinalizeThreads];
   extern __shared__ float fsm[];
-  float* mom = fsm;                    // p * 4
-  float* hs = mom + (size_t)p * 4;     // p
-  float* cent = hs + p;                // p * 3
-  int* sv = (int*)(cent + (size_t)p * 3);  // p
-  float* red_v = (float*)(sv + p);     // blockDim
-  int* red_i = (int*)(red_v + blockDim.x);  // blockDim
+  // (P, 4) sums, (P,) masses, (P, 3) centres and (P,) flags in shared
+  // memory when they fit, else in device scratch and the output itself
+  float* mom = kShared ? fsm : gmom;                          // p * 4
+  float* hs = kShared ? mom + (size_t)p * 4 : ghs;            // p
+  float* cent = kShared ? hs + p : cout;                      // p * 3
+  const int* sv = kShared ? (const int*)(cent + (size_t)p * 3) : valid;
 
   const int tid = threadIdx.x;
   for (int i = tid; i < p * 4; i += blockDim.x) {
@@ -127,7 +171,9 @@ __global__ void kmeans_finalize(const float* __restrict__ partials,
     mom[i] = acc;
   }
   for (int i = tid; i < p * 3; i += blockDim.x) cent[i] = cin[i];
-  for (int k = tid; k < p; k += blockDim.x) sv[k] = valid[k];
+  if (kShared) {
+    for (int k = tid; k < p; k += blockDim.x) ((int*)sv)[k] = valid[k];
+  }
   __syncthreads();
   for (int k = tid; k < p; k += blockDim.x) {
     const float h = mom[4 * k];
@@ -174,33 +220,51 @@ __global__ void kmeans_finalize(const float* __restrict__ partials,
     }
     __syncthreads();
   }
-  for (int i = tid; i < p * 3; i += blockDim.x) cout[i] = cent[i];
+  if (kShared) {
+    for (int i = tid; i < p * 3; i += blockDim.x) cout[i] = cent[i];
+  }
+}
+
+template <bool kShared>
+int kmeans_step(const float* x, const float* w, const float* cin,
+                const int* valid, int m, int p, int per_block, int nblocks,
+                float* partials, int* labels, float* cout, float* mom,
+                float* hs, cudaStream_t st) {
+  const int tile = p < kTile ? p : kTile;
+  const size_t smem1 = (size_t)tile * 16 + (size_t)((tile + 3) & ~3) * 4 +
+                       PT_STAGE * 16 + PT_STAGE * 4 +
+                       (kShared ? (size_t)p * 16 : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      kmeans_partial<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem1);
+  if (err != cudaSuccess) return (int)err;
+  kmeans_partial<kShared><<<nblocks, PT_THREADS, smem1, st>>>(
+      x, w, cin, valid, m, p, per_block, partials, labels);
+  const size_t smem2 = kShared ? (size_t)p * (4 + 1 + 3 + 1) * 4 : 0;
+  err = cudaFuncSetAttribute(kmeans_finalize<kShared>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem2);
+  if (err != cudaSuccess) return (int)err;
+  kmeans_finalize<kShared><<<1, kFinalizeThreads, smem2, st>>>(
+      partials, nblocks, cin, cout, valid, p, mom, hs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (M, 3); w: (M,) or NULL (weight 1); cin/cout: (P, 3); valid: (P,)
-// int32; partials: (nblocks, P, 4) scratch; labels: (M,) or NULL.
+// int32; partials: (nblocks, P, 4) scratch; labels: (M,) or NULL; mom:
+// (P, 4) and hs: (P,) scratch, used when P > kSmemTable.
 PT_EXPORT int pt_kmeans_step(const float* x, const float* w, const float* cin,
                              const int* valid, int m, int p, int per_block,
                              int nblocks, float* partials, int* labels,
-                             float* cout, void* stream) {
+                             float* cout, float* mom, float* hs,
+                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem1 = (size_t)p * 16 + (size_t)p * 16 + PT_STAGE * 16 +
-                       (size_t)p * 4 + PT_STAGE * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      kmeans_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem1);
-  if (err != cudaSuccess) return (int)err;
-  kmeans_partial<<<nblocks, PT_THREADS, smem1, st>>>(
-      x, w, cin, valid, m, p, per_block, partials, labels);
-  const size_t smem2 =
-      (size_t)p * (4 + 1 + 3 + 1) * 4 + (size_t)kFinalizeThreads * 8;
-  err = cudaFuncSetAttribute(kmeans_finalize,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
-  if (err != cudaSuccess) return (int)err;
-  kmeans_finalize<<<1, kFinalizeThreads, smem2, st>>>(partials, nblocks, cin,
-                                                      cout, valid, p);
-  return (int)cudaGetLastError();
+  if (p <= kSmemTable) {
+    return kmeans_step<true>(x, w, cin, valid, m, p, per_block, nblocks,
+                             partials, labels, cout, mom, hs, st);
+  }
+  return kmeans_step<false>(x, w, cin, valid, m, p, per_block, nblocks,
+                            partials, labels, cout, mom, hs, st);
 }

@@ -24,7 +24,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "kernels"
-SOURCES = ("segment_sum.cu", "lq_candidates.cu", "assign.cu", "kmeans.cu")
+SOURCES = ("segment_sum.cu", "lq_candidates.cu", "assign.cu", "kmeans.cu",
+           "hilbert.cu", "dither.cu", "mbd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,12 +35,17 @@ LIB_NAME = "libpatolette_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (every one returns an int error).
 SIGNATURES = {
     "pt_segment_sum": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "pt_lq_candidates": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "pt_assign_planar": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
-    "pt_kmeans_step": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "pt_kmeans_step": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P),
+    "pt_hilbert_keys": (_L, _I, _I, _P, _P),
+    "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "pt_mbd": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

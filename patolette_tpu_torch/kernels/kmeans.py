@@ -2,8 +2,10 @@
 
 Kernel: ``csrc/kmeans.cu`` (assignment + per-block ``[w, w x]`` partials,
 then one block that sums them, updates the centres and runs the empty-
-cluster split). Twin: the JAX package's loop body
-(``kmeans.py:104-117``) with ``_split_empty`` (``kmeans.py:59-86``).
+cluster split). Any number of centres: the kernel tiles them through shared
+memory and keeps tables that do not fit there in device scratch. Twin: the
+JAX package's loop body (``kmeans.py:104-117``) with ``_split_empty``
+(``kmeans.py:59-86``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from patolette_tpu_torch.kernels.assign import assign_planar_plain
 from patolette_tpu_torch.kernels.segment import segment_sum_plain
 
 SPLIT_EPS = 1.0 / 1024.0  # Clustering.cpp EPS
-MAX_CENTERS = 4096        # the step keeps (P, 9) floats in shared memory
 PIXELS_PER_BLOCK = 2048
 MAX_BLOCKS = 256
 
@@ -82,10 +83,8 @@ def kmeans_step(samples, weights, centers, valid, return_labels=False):
             or valid.shape != (p,)
             or (weights is not None and weights.shape != (m,))):
         raise ValueError("kmeans_step: bad shapes")
-    if not 1 <= p <= MAX_CENTERS:
-        raise ValueError(
-            f"kmeans_step: {p} centres; the kernel takes 1..{MAX_CENTERS}"
-        )
+    if p < 1:
+        raise ValueError("kmeans_step: no centres")
     valid_i = valid.to(torch.int32)
     build.require_cuda("kmeans_step", samples, weights, centers, valid_i)
     dev = samples.device
@@ -93,12 +92,14 @@ def kmeans_step(samples, weights, centers, valid, return_labels=False):
     per_block = max(1, -(-m // nblocks))
     partials = torch.empty((nblocks, p, 4), dtype=torch.float32, device=dev)
     out = torch.empty((p, 3), dtype=torch.float32, device=dev)
+    scratch = torch.empty((p * 5,), dtype=torch.float32, device=dev)
     labels = (torch.empty((m,), dtype=torch.int32, device=dev)
               if return_labels else None)
     err = build.library().pt_kmeans_step(
         build.ptr(samples), build.ptr(weights), build.ptr(centers),
         build.ptr(valid_i), m, p, per_block, nblocks, build.ptr(partials),
-        build.ptr(labels), build.ptr(out), build.stream(),
+        build.ptr(labels), build.ptr(out), build.ptr(scratch[:p * 4]),
+        build.ptr(scratch[p * 4:]), build.stream(),
     )
     build.check(err, "kmeans_step")
     kernels.LAUNCHES["kmeans_step"] += 1

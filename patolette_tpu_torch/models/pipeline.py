@@ -3,9 +3,11 @@
 One route, modelled on the JAX package's resident full-upload path
 (``patolette_tpu/models/pipeline.py::_quantize_full_upload``):
 
-    sRGB -> working space -> LQ sample draw -> GQ (K1 moments + host f64 DP)
-    -> LQ (K2 with K1) -> centres (K1) -> KMeans (K4) -> ICtCp direct map
-    (K3) -> sRGB palette with [-1, -1, -1] fill.
+    sRGB -> weights (explicit, else MBD saliency with K9 when
+    ``tile_size > 0``) -> working space -> LQ sample draw -> GQ (K1 moments
+    + host f64 DP) -> LQ (K2 with K1) -> centres (K1) -> KMeans (K4) ->
+    Riemersma dither (K7 curve order, K8 scan) or the ICtCp direct map (K3)
+    -> sRGB palette with [-1, -1, -1] fill.
 
 The image stays on the device as three planar f32 channels; the host
 holds only the options, the 512-bucket GQ moments (for the f64 DP), one
@@ -15,10 +17,12 @@ exact draw, so the two LQ samples are the same pixels), then the KMeans
 draw from the same ``rng`` (the JAX package draws that one with
 ``jax.random``; see the README's divergence table).
 
-Not in this slice (each returns a typed failure that names it): dithering,
-saliency weighting (``tile_size > 0`` without ``weights``), ``mesh=``, and
-images beyond the device budget. uint8 input is normalised on the device
-and takes the same direct map (the 24-bit LUT route comes later).
+Not in this slice (each returns a typed failure that names it): ``mesh=``
+and images beyond the device budget. uint8 input is normalised on the
+device and takes the same direct map or dither (the 24-bit LUT route and
+the packed uint8 dither feed come later). Above 4 MP without saliency the
+JAX package dithers per row strip; this route dithers the whole image
+along one curve (README divergence T2).
 """
 
 from __future__ import annotations
@@ -28,10 +32,12 @@ import time
 import numpy as np
 import torch
 
+from patolette_tpu_torch.models import dither as DITH
 from patolette_tpu_torch.models import global_q as GQ
 from patolette_tpu_torch.models import kmeans as KM
 from patolette_tpu_torch.models import local_q as LQ
 from patolette_tpu_torch.models import palette as PAL
+from patolette_tpu_torch.models import saliency as SAL
 from patolette_tpu_torch.ops import colorspace as cs
 from patolette_tpu_torch.ops import eigen3
 from patolette_tpu_torch.ops import moments as M
@@ -42,9 +48,14 @@ from patolette_tpu_torch.utils.config import ColorSpace, QuantizeOptions
 # Per-stage wall times (ms) of the most recent quantize() call.
 LAST_STAGE_TIMES: dict[str, float] = {}
 
-# Device bytes the route holds per pixel: sRGB and working planar channels
-# (24), the ICtCp copy for the map (12), the map (4) and transients (8).
-BYTES_PER_PIXEL = 48
+# Peak device bytes per pixel of one call (torch.cuda.max_memory_allocated
+# over a 3840x2160 call on an H100, chip_smoke.py's e2e phases), rounded
+# up: 80.3 for the direct map (sRGB and working planes, the ICtCp copy, the
+# map, the colour transforms' f64 power transients); 102.1 with saliency
+# and dither (the MBD's l, u, d and the Lab and prior planes; the linear
+# Rec2020 planes, the curve keys, their sort and the permutation).
+BYTES_PER_PIXEL = 84
+BYTES_PER_PIXEL_SALIENCY_OR_DITHER = 104
 DEVICE_BUDGET_FRACTION = 0.8
 
 
@@ -210,8 +221,8 @@ def quantize(
             tile_size=tile_size, kmeans_niter=kmeans_niter,
             kmeans_max_samples=kmeans_max_samples, verbose=verbose,
             weights=weights, lq_max_samples=lq_max_samples,
-            lq_batch_splits=lq_batch_splits, seed=seed, mesh=mesh,
-            device=device, sync_stages=sync_stages,
+            lq_batch_splits=lq_batch_splits, dither_segment=dither_segment,
+            seed=seed, mesh=mesh, device=device, sync_stages=sync_stages,
         )
     except Exception as e:  # noqa: BLE001 -- the reference's -1 surface
         msg = errors.exit_code_message(errors.ExitCode.BAD_QUANT)
@@ -223,7 +234,8 @@ def quantize(
 def _quantize_body(width, height, colors, palette_size, *, dither,
                    palette_only, color_space, tile_size, kmeans_niter,
                    kmeans_max_samples, verbose, weights, lq_max_samples,
-                   lq_batch_splits, seed, mesh, device, sync_stages):
+                   lq_batch_splits, dither_segment, seed, mesh, device,
+                   sync_stages):
     colors = np.asarray(colors)
     if colors.ndim != 2 or colors.shape[1] != 3:
         ch = colors.shape[1] if colors.ndim == 2 else colors.ndim
@@ -238,24 +250,22 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
 
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device) is not ported yet")
-    if dither and not palette_only:
-        raise NotImplementedError(
-            "dithering is not ported yet; pass dither=False"
-        )
-    if weights is None and tile_size > 0:
-        raise NotImplementedError(
-            "saliency weighting is not ported yet; pass tile_size=0 or "
-            "explicit weights="
-        )
     device = _resolve_device(device)
     n = width * height
-    if n * BYTES_PER_PIXEL > _device_budget(device):
+    dither = bool(dither) and not palette_only
+    saliency = weights is None and tile_size > 0
+    per_pixel = (BYTES_PER_PIXEL_SALIENCY_OR_DITHER if saliency or dither
+                 else BYTES_PER_PIXEL)
+    if n * per_pixel > _device_budget(device):
         raise NotImplementedError(
             f"{n} pixels exceed the device budget; strip streaming is not "
             "ported yet"
         )
     return _quantize_resident(
-        colors, n, int(palette_size), palette_only=palette_only,
+        colors, int(width), int(height), int(palette_size),
+        palette_only=palette_only, dither=dither,
+        dither_segment=int(dither_segment),
+        tile_size=float(tile_size) if saliency else 0.0,
         csp=int(color_space), kmeans_niter=int(kmeans_niter),
         kmeans_max_samples=int(kmeans_max_samples), verbose=verbose,
         weights=weights, lq_max_samples=int(lq_max_samples),
@@ -264,17 +274,25 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
     )
 
 
-def _quantize_resident(colors, n, p, *, palette_only, csp, kmeans_niter,
+def _quantize_resident(colors, width, height, p, *, palette_only, dither,
+                       dither_segment, tile_size, csp, kmeans_niter,
                        kmeans_max_samples, verbose, weights, lq_max_samples,
                        lq_batch_splits, seed, device, timer):
     """The resident route: planar image on the device end to end."""
+    n = width * height
     xp_srgb = _upload(colors, device)
+    # weights: explicit > saliency (tile_size > 0 only without them) > none
     w_full = None
     if weights is not None:
         w_full = torch.from_numpy(
             np.ascontiguousarray(weights, dtype=np.float32).reshape(-1)
         ).to(device)
     timer.lap("stage-in")
+
+    if tile_size > 0:
+        _log(verbose, "Generating saliency map")
+        w_full = SAL.get_weights_planar(xp_srgb, height, width, tile_size)
+        timer.lap("saliency")
 
     xp_work = cs.srgb_to_working(xp_srgb, csp)
     del xp_srgb
@@ -313,7 +331,14 @@ def _quantize_resident(colors, n, p, *, palette_only, csp, kmeans_niter,
         timer.lap("kmeans")
 
     palette_map = None
-    if not palette_only:
+    if dither:
+        _log(verbose, "Dithering")
+        palette_map = DITH.riemersma_dither_planar(
+            xp_work, centers, valid, width, height, csp,
+            segment=dither_segment,
+        ).cpu().numpy()
+        timer.lap("dither")
+    elif not palette_only:
         _log(verbose, "NN mapping")
         xi = cs.working_to_ictcp(xp_work, csp)
         pi = cs.working_to_ictcp(centers, csp)

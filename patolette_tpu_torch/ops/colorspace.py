@@ -351,6 +351,26 @@ def srgb_to_ictcp(rgb):
     return linear_rec2020_to_ictcp(srgb_to_linear_rec2020(rgb))
 
 
+def srgb_to_lab(rgb):
+    """sRGB -> CIELAB (D65) for the saliency border prior (the reference
+    calls skimage.color.rgb2lab, patolette.pyx:213). The cube root is
+    ``pow(t, fl32(1/3))`` rounded once, as the JAX package's compiled
+    ``cbrt`` evaluates it."""
+    x0, y0, z0 = _split(srgb_to_xyz(rgb))
+
+    def fwhite(t):
+        return torch.where(t > K_E, _pow(t, 1.0 / 3.0),
+                           _div(_fma(t, _f32(K_K), 16.0), 116.0))
+
+    fx = fwhite(_div(x0, D65_X))
+    fy = fwhite(_div(y0, D65_Y))
+    fz = fwhite(_div(z0, D65_Z))
+    l = _fma(fy, 116.0, -16.0)
+    a = 500.0 * (fx - fy)
+    b = 200.0 * (fy - fz)
+    return _join(rgb, l, a, b)
+
+
 def srgb_to_working(rgb, color_space):
     """sRGB -> working space (reference patolette.c:201-207)."""
     cs = int(color_space)
@@ -373,6 +393,17 @@ def working_to_ictcp(x, color_space):
     if cs == 2:
         return x
     return srgb_to_ictcp(x)
+
+
+def working_to_linear_rec2020(x, color_space):
+    """Working space -> linear Rec2020 for dithering
+    (reference patolette.c:274-287)."""
+    cs = int(color_space)
+    if cs == 1:
+        return cieluv_to_linear_rec2020(x)
+    if cs == 2:
+        return ictcp_to_linear_rec2020(x)
+    return srgb_to_linear_rec2020(x)
 
 
 def working_to_srgb(x, color_space):

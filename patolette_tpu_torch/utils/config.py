@@ -33,8 +33,7 @@ class QuantizeOptions:
     """Options for :func:`patolette_tpu_torch.quantize`.
 
     dither:
-        Error-diffusion dithering of the palette map. Not ported yet: a call
-        that asks for it returns a typed failure.
+        Riemersma error-diffusion dithering of the palette map.
     palette_only:
         Only generate the palette; skip palette-map generation.
     color_space:
@@ -47,9 +46,9 @@ class QuantizeOptions:
         ``max_points_per_centroid = max(kmeans_max_samples, 256**2) / k``
         (reference refine.c:77-90).
     tile_size:
-        Saliency weighting control; 0 disables saliency. Saliency is not
-        ported yet: ``tile_size > 0`` without explicit weights returns a
-        typed failure.
+        Saliency weighting control; 0 disables saliency. With
+        ``tile_size > 0`` and no explicit weights, pixels are weighted by
+        MBD saliency, ``1 + sal^2 * pixels / tile_size^2``.
     verbose:
         Stage logging.
     lq_max_samples:
@@ -58,8 +57,8 @@ class QuantizeOptions:
         Clusters split per LQ round (top-B by benefit); 1 is the reference's
         strictly sequential greedy.
     dither_segment:
-        Hilbert-curve segment length of the dither scan (kept for parity of
-        the options object; unused until dithering is ported).
+        Hilbert-curve segment length of the dither scan: the error queue
+        restarts every ``dither_segment`` pixels (0 = one serial chain).
     seed:
         Seed of the host sample draws (``np.random.default_rng``).
     """

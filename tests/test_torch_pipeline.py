@@ -14,7 +14,10 @@ Tolerances:
     sides): palette atol 1e-3, map agreement >= 99.9%; one different split
     would move entries by > 1e-2.
   * with KMeans the sample draws differ by design (host numpy draw vs
-    ``jax.random``): CIELuv MSE ratio port / JAX <= 1.01.
+    ``jax.random``): CIELuv MSE ratio port / JAX <= 1.01. The same ratio
+    holds the default call (saliency, dither, 32 KMeans iterations).
+  * goldens ``ictcp_dither`` and ``srgb_saliency``: identical histograms,
+    palette atol 5e-5 (the golden's own; measured 5.7e-7 and 3.6e-7).
 """
 
 import dataclasses
@@ -90,6 +93,10 @@ GOLDENS = {
                               color_space=tpt.ColorSpace_CIELuv), 5e-5),
     "ictcp_kmeans8": (24, dict(dither=False, tile_size=0, kmeans_niter=8,
                                color_space=tpt.ColorSpace_ICtCp), 1e-4),
+    "srgb_saliency": (16, dict(dither=False, tile_size=256, kmeans_niter=0,
+                               color_space=tpt.ColorSpace_sRGB), 5e-5),
+    "ictcp_dither": (16, dict(dither=True, tile_size=0, kmeans_niter=4,
+                              color_space=tpt.ColorSpace_ICtCp), 5e-5),
 }
 
 
@@ -148,16 +155,30 @@ class TestValidation:
         assert "injected device failure" in msg
 
     @pytest.mark.parametrize("kw,needle", [
-        (dict(dither=True, tile_size=0), "dithering"),
-        (dict(dither=False, tile_size=512.0), "saliency"),
         (dict(dither=False, tile_size=0, mesh=object()), "mesh"),
+        (dict(dither=True, tile_size=512.0), "device budget"),
     ])
-    def test_uncovered_calls_fail_typed(self, kw, needle):
+    def test_uncovered_calls_fail_typed(self, kw, needle, monkeypatch):
+        if needle == "device budget":
+            monkeypatch.setattr(TP, "_device_budget", lambda device: 0)
         colors, _, _ = _posterized_image()
         ok, pal, pmap, msg = _port(64, 64, colors, 8, **kw)
         assert ok is False and pal is None and pmap is None
         assert msg.startswith("Internal quantization error.")
         assert needle in msg
+
+    @pytest.mark.parametrize("kw,stage", [
+        (dict(dither=True, tile_size=0), "dither"),
+        (dict(dither=False, tile_size=512.0), "saliency"),
+    ])
+    def test_dither_and_saliency_calls_succeed(self, kw, stage):
+        """The two calls the first slice refused now run."""
+        colors, _, _ = _posterized_image()
+        ok, pal, pmap, msg = _port(64, 64, colors, 8, kmeans_niter=2, **kw)
+        assert ok, msg
+        assert pmap.shape == (64 * 64,) and pmap.dtype == np.int32
+        assert (pal[pmap] >= 0).all()
+        assert stage in TP.LAST_STAGE_TIMES
 
     def test_default_device_is_cuda(self, monkeypatch):
         """With no CUDA device the default call fails typed; it never
@@ -249,6 +270,19 @@ def test_large_image_against_jax_staged(monkeypatch, niter):
         assert (pmap == jmap).mean() >= 0.999
     else:
         assert _mse_luv(x, pal, pmap) / _mse_luv(x, jpal, jmap) <= 1.01
+
+
+def test_default_call_against_jax_staged(monkeypatch):
+    """The library's default call (saliency weights, Riemersma dither, 32
+    KMeans iterations, ICtCp) at 520x512, against the JAX staged route."""
+    monkeypatch.setenv("PATOLETTE_NO_ONE_SHOT", "1")
+    x = _large_image()
+    ok, pal, pmap, msg = _port(520, 512, x, 64)
+    assert ok, msg
+    assert {"saliency", "dither"} <= set(TP.LAST_STAGE_TIMES)
+    jok, jpal, jmap, jmsg = jpt.quantize(520, 512, x, 64)
+    assert jok, jmsg
+    assert _mse_luv(x, pal, pmap) / _mse_luv(x, jpal, jmap) <= 1.01
 
 
 def test_import_leaves_jax_out():
