@@ -10,16 +10,30 @@ Phases, each printing one JSON line:
      the main paths' shapes (max deviation, label agreement), timed with
      CUDA events beside the plain version, a PyTorch library call where one
      computes the same function, and the least time the card could take;
+     K5's u8 and u16 tables must also equal K3's map of all 2^24 codes;
   4. e2e: quantize() of a 4K float32 image to 256 colours with 32 KMeans
      iterations and no dither or saliency (K1-K4 must launch, two runs
-     must agree bit for bit), the same call on uint8 input;
+     must agree bit for bit), then the same pixels as uint8, which take the
+     sampled LUT route (K5, K1, K2, K4 must launch and K3 must not, two
+     runs must agree bit for bit, CIELuv MSE within 1% of the float32
+     call's);
   5. e2e-default: the library's default call on the same image (MBD
      saliency, weighted palette, Riemersma dither; K7, K8, K9, K1, K2 and
      K4 must launch, two runs must agree bit for bit, the CIELuv MSE must
      be under half the 216-colour cube's dithered the same way, and the
      dither must not lose to the undithered map on 8x8 block means),
      float32 and uint8;
-  6. golden: the 96x64 inputs against tests/golden/quantize_golden.npz.
+  6. e2e-headline: bench.py's call through the port (10000x10000 uint8,
+     256 colours, 25 KMeans iterations, ICtCp, no dither or saliency): one
+     warm call, best of 3, the launch and repeat checks, CIELuv MSE on a
+     fixed 1M-pixel subset, peak device memory within 10% of the 4K uint8
+     call's (nothing on the device grows with N);
+  7. golden: the 96x64 inputs against tests/golden/quantize_golden.npz.
+With ``--routes`` (a measurement, not a check) it then times the sampled
+LUT route against the resident route (direct map and LUT map) at 4, 8.3
+and 33 MP uint8, the host map against plain torch CPU ops and a gather on
+the card at 100 MP, and the headline call with and without the codes
+packed ahead on a thread.
 With ``--profile`` the e2e phases also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
 DIR`` the ptxas report and the profiler tables are written to DIR. Then
@@ -31,6 +45,7 @@ without the package beside it) it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -44,6 +59,9 @@ DEV = "cuda"
 W, H = 3840, 2160
 N_SAMPLES = 1 << 18
 P_LARGE = 8192
+# bench.py's headline image, and the sizes the --routes table compares.
+HEADLINE_W, HEADLINE_H = 10000, 10000
+ROUTE_SHAPES = ((2048, 2048), (3840, 2160), (7680, 4320))
 
 
 def _out_dir():
@@ -346,6 +364,58 @@ def kernel_k4_large(torch, rows):
                      bound_by=by))
 
 
+def kernel_k5(torch, rows):
+    """K5 on the cached ICtCp grid at P = 256 (u8) and P = 1024 (u16):
+    identical to its plain version and to K3 on all 2^24 codes."""
+    from patolette_tpu_torch.kernels.assign import assign_planar
+    from patolette_tpu_torch.kernels.lut import lut_argmin, lut_argmin_plain
+    from patolette_tpu_torch.ops import lut
+
+    lut.clear_grid_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = lut.grid_ictcp(2, DEV)
+    torch.cuda.synchronize()
+    grid_ms = (time.perf_counter() - t0) * 1e3
+    n = lut.LUT_SIZE
+    for p, dtype, name in ((256, torch.uint8, "lut_argmin"),
+                           (1024, torch.uint16, "lut_argmin[1024]")):
+        centers = _working_pixels(torch, p, 20 + p)
+        valid = torch.ones(p, dtype=torch.bool, device=DEV)
+        valid[-3:] = False
+        got = lut_argmin(grid, centers, valid, dtype)
+        twin = lut_argmin_plain(grid, centers, valid, dtype)
+        direct = assign_planar(grid, centers, valid)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == (n,), f"K5[{p}] output")
+        check(torch.equal(got, twin),
+              f"K5[{p}] differs from its plain version")
+        check(torch.equal(got.to(torch.int32), direct),
+              f"K5[{p}] differs from K3 on the grid")
+        ms = time_ms(lambda: lut_argmin(grid, centers, valid, dtype))
+        plain = time_ms(lambda: lut_argmin_plain(grid, centers, valid, dtype),
+                        reps=3, warm=1)
+        x = torch.stack(grid, 1)
+        cv = centers[valid]
+        step = 1 << 20
+
+        def library():
+            return torch.cat([torch.cdist(x[s:s + step], cv).argmin(1)
+                              for s in range(0, n, step)])
+
+        lib = time_ms(library, reps=3, warm=1)
+        b, by = bound_ms(n * 12 + p * 16 + n * got.element_size(),
+                         n * int(valid.sum()) * 7)
+        rows.append(dict(name=name, shape=[n, p], out_dtype=str(dtype),
+                         max_abs_err=float((got != twin).sum()),
+                         k3_mismatches=int((got.to(torch.int32)
+                                            != direct).sum()),
+                         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                         bound_by=by, grid_build_cold_ms=grid_ms))
+    # the e2e phases' peak device memory counts what their calls hold
+    lut.clear_grid_cache()
+
+
 def kernel_k7(torch, rows):
     from patolette_tpu_torch.kernels.hilbert import (hilbert_keys,
                                                      hilbert_keys_plain)
@@ -449,6 +519,7 @@ def phase_kernels(torch):
     kernel_k3(torch, rows)
     kernel_k4(torch, rows)
     kernel_k4_large(torch, rows)
+    kernel_k5(torch, rows)
     kernel_k7(torch, rows)
     kernel_k8(torch, rows)
     kernel_k9(torch, rows)
@@ -475,6 +546,28 @@ def synth_image_f32(w, h, seed=0, tile=1000):
     img = np.tile(pat, (-(-h // tile), -(-w // tile), 1))[:h, :w]
     img[:, :, 2] += np.linspace(-0.45, 0.45, h, dtype=np.float32)[:, None]
     return np.clip(img, 0, 1, out=img).reshape(-1, 3)
+
+
+def synth_image_u8(w, h, seed=0, tile=1000):
+    """bench.py's synthetic image (its ``synth_image_u8``): the texture on
+    a small tile, tiled up, a full-size vertical gradient and noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:tile, 0:tile].astype(np.float32)
+    pat = np.stack(
+        [
+            0.5 + 0.45 * np.sin(xx / 97.0) * np.cos(yy / 131.0),
+            0.5 + 0.45 * np.cos(xx / 177.0 + yy / 211.0),
+            0.5 + 0.05 * rng.standard_normal((tile, tile)).astype(np.float32),
+        ],
+        axis=-1,
+    )
+    reps_y, reps_x = -(-h // tile), -(-w // tile)
+    img = np.tile(pat, (reps_y, reps_x, 1))[:h, :w]
+    img[:, :, 2] += np.linspace(-0.45, 0.45, h, dtype=np.float32)[:, None]
+    img = np.clip(img, 0, 1, out=img).reshape(-1, 3)
+    return np.round(img * 255.0).astype(np.uint8)
 
 
 def _mse_luv(torch, colors, pal, pmap):
@@ -544,6 +637,8 @@ def _profile_call(torch, call, name):
 # Kernels each path must launch (names of kernels.LAUNCHES).
 MAIN_PATH_KERNELS = ("segment_sum", "lq_candidates", "assign_planar",
                      "kmeans_step")
+U8_LUT_KERNELS = ("lut_argmin", "segment_sum", "lq_candidates",
+                  "kmeans_step")
 DEFAULT_PATH_KERNELS = ("hilbert_keys", "dither_scan", "mbd", "segment_sum",
                         "lq_candidates", "kmeans_step")
 
@@ -623,24 +718,202 @@ def phase_e2e(torch, profile=False):
     check(np.isfinite(mse) and mse < 0.5 * mse_cube,
           f"CIELuv MSE {mse} against {mse_cube} for the 216-colour cube")
 
+    # the same pixels as uint8 take the sampled LUT route (K5, no K3); as
+    # float32 they take the resident route with the same LQ sample
     img_u8 = np.round(img * 255.0).astype(np.uint8)
-    t0 = time.perf_counter()
-    pal8, pmap8 = run(img_u8)
-    u8_s = time.perf_counter() - t0
-    mse8, cube8 = _mse_luv(torch, img_u8.astype(np.float32) / 255.0, pal8,
-                           pmap8)
+    pal8, pmap8, stats8 = _drive(torch, run, img_u8, U8_LUT_KERNELS,
+                                 "the uint8 LUT route")
+    check(stats8["launches"]["assign_planar"] == 0,
+          "K3 launched on the uint8 LUT route")
+    check("lut-map-host" in stats8["stage_ms"], "uint8 call missed the route")
+    _check_outputs(pal8, pmap8, p, w * h)
+    x8 = img_u8.astype(np.float32) / np.float32(255.0)
+    mse8, cube8 = _mse_luv(torch, x8, pal8, pmap8)
     check(np.isfinite(mse8) and mse8 < 0.5 * cube8,
           f"uint8 CIELuv MSE {mse8} against {cube8} for the cube")
+    palf, pmapf = run(x8)
+    mse8f = _mse_luv(torch, x8, palf, pmapf)[0]
+    check(abs(mse8 / mse8f - 1.0) <= 0.01,
+          f"uint8 LUT route CIELuv MSE {mse8} against {mse8f} as float32")
 
     if profile:
         _profile_call(torch, lambda: run(img), "main")
+        _profile_call(torch, lambda: run(img_u8), "u8_lut")
 
     emit({"phase": "e2e", "shape": [w, h], "palette": p, "kmeans_niter": 32,
           **stats, "mp_per_s": w * h / 1e6 / stats["best_s"],
           "cieluv_mse": mse, "cieluv_mse_cube216": mse_cube,
-          "palette_used": used, "uint8_wall_s": u8_s,
-          "uint8_cieluv_mse": mse8, "bit_identical_runs": True})
-    return stats["launches"]
+          "palette_used": used, "bit_identical_runs": True})
+    emit({"phase": "e2e-u8-lut", "shape": [w, h], "palette": p,
+          "kmeans_niter": 32, **stats8,
+          "mp_per_s": w * h / 1e6 / stats8["best_s"],
+          "cieluv_mse": mse8, "cieluv_mse_cube216": cube8,
+          "cieluv_mse_same_pixels_float32": mse8f,
+          "bit_identical_runs": True})
+    return stats["launches"], stats8["launches"], stats8["peak_device_bytes"]
+
+
+def phase_e2e_headline(torch, peak_4k):
+    """bench.py's headline call through the port: 100 MP uint8, 256
+    colours, 25 KMeans iterations, ICtCp, no dither or saliency."""
+    import numpy as np
+
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch import kernels
+    from patolette_tpu_torch.models import pipeline
+
+    w, h, p, iters = HEADLINE_W, HEADLINE_H, 256, 25
+    t0 = time.perf_counter()
+    img = synth_image_u8(w, h)
+    synth_s = time.perf_counter() - t0
+
+    def run():
+        ok, pal, pmap, msg = pt.quantize(
+            w, h, img, p, dither=False, tile_size=0, kmeans_niter=iters,
+            color_space=pt.ColorSpace_ICtCp)
+        check(ok, f"headline quantize failed: {msg}")
+        return pal, pmap
+
+    t0 = time.perf_counter()
+    run()
+    warm_s = time.perf_counter() - t0
+    walls, laps = [], []
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    pal, pmap = None, None
+    for i in range(3):
+        t0 = time.perf_counter()
+        pal2, pmap2 = run()
+        walls.append(time.perf_counter() - t0)
+        laps.append(dict(pipeline.LAST_STAGE_TIMES))
+        if i == 0:
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            for name in U8_LUT_KERNELS:
+                check(launches[name] > 0,
+                      f"kernel {name} not launched on the headline call")
+            check(launches["assign_planar"] == 0, "K3 launched (headline)")
+            pal, pmap = pal2, pmap2
+        else:
+            check(np.array_equal(pal, pal2) and np.array_equal(pmap, pmap2),
+                  "two headline calls differ")
+    _check_outputs(pal, pmap, p, w * h)
+    idx = np.random.default_rng(1).integers(0, w * h, size=1 << 20)
+    sub = img[idx].astype(np.float32) / np.float32(255.0)
+    mse, cube = _mse_luv(torch, sub, pal, pmap[idx])
+    check(np.isfinite(mse) and mse < 0.5 * cube,
+          f"headline CIELuv MSE {mse} against {cube} for the cube")
+    check(abs(peak - peak_4k) <= 0.1 * peak_4k,
+          f"headline peak device bytes {peak} against {peak_4k} at 4K")
+    torch.cuda.reset_peak_memory_stats()
+    ok, *_ = pt.quantize(w, h, img, p, dither=False, tile_size=0,
+                         kmeans_niter=iters, color_space=pt.ColorSpace_ICtCp,
+                         sync_stages=True)
+    check(ok, "synced headline call failed")
+    synced = dict(pipeline.LAST_STAGE_TIMES)
+    best = min(walls)
+    emit({"phase": "e2e-headline", "shape": [w, h], "palette": p,
+          "kmeans_niter": iters, "synth_s": synth_s, "warmup_s": warm_s,
+          "wall_s": walls, "best_s": best, "mp_per_s": w * h / 1e6 / best,
+          "stage_ms": laps[walls.index(best)], "stage_ms_synced": synced,
+          "launches": launches, "peak_device_bytes": peak,
+          "peak_device_bytes_4k_u8": peak_4k, "cieluv_mse_1m": mse,
+          "cieluv_mse_cube216_1m": cube, "bit_identical_runs": True})
+    return img
+
+
+def phase_routes(torch, img_100mp):
+    """One-off measurement: the sampled LUT route against the resident
+    route (K3 direct map, and its LUT branch) at 4, 8.3 and 33 MP uint8,
+    called directly; then the host map at 100 MP against plain torch CPU
+    ops and against a gather on the card."""
+    import numpy as np
+
+    from patolette_tpu_torch.models import pipeline as TP
+    from patolette_tpu_torch.ops import lut
+
+    dev = torch.device(DEV, torch.cuda.current_device())
+    kw = dict(palette_only=False, csp=2, kmeans_niter=25,
+              kmeans_max_samples=512 ** 2, verbose=False, weights=None,
+              lq_max_samples=1 << 18, lq_batch_splits=8, seed=1234,
+              device=dev)
+
+    def best(fn, reps=3):
+        fn()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        return min(walls), walls
+
+    for w, h in ROUTE_SHAPES:
+        img = synth_image_u8(w, h)
+        out = {"phase": "routes", "shape": [w, h]}
+        for name, fn in (
+            ("sampled_lut", lambda: TP._quantize_via_samples(
+                img, 256, timer=TP._StageTimer(False, False, dev), **kw)),
+            ("resident_direct", lambda: TP._quantize_resident(
+                img, w, h, 256, dither=False, dither_segment=4096,
+                tile_size=0.0, timer=TP._StageTimer(False, False, dev),
+                lut_map=False, **kw)),
+            ("resident_lut", lambda: TP._quantize_resident(
+                img, w, h, 256, dither=False, dither_segment=4096,
+                tile_size=0.0, timer=TP._StageTimer(False, False, dev),
+                lut_map=True, **kw)),
+        ):
+            out[name + "_best_s"], out[name + "_wall_s"] = best(fn)
+            out[name + "_stage_ms"] = dict(TP.LAST_STAGE_TIMES)
+        emit(out)
+        del img
+
+    img = img_100mp
+    n = img.shape[0]
+    table = torch.randint(0, 256, (lut.LUT_SIZE,), dtype=torch.uint8)
+    want = lut.lut_map_host(img, table)
+
+    def torch_cpu():
+        x = torch.from_numpy(img)
+        codes = x[:, 0].to(torch.int32).mul_(256).add_(x[:, 1]).mul_(
+            256).add_(x[:, 2])
+        return torch.index_select(table.to(torch.int32), 0, codes).numpy()
+
+    table_dev = table.to(DEV)
+
+    def device_gather():
+        x = torch.from_numpy(img).to(DEV)
+        codes = x[:, 0].to(torch.int32).mul_(256).add_(x[:, 1]).mul_(
+            256).add_(x[:, 2])
+        return table_dev[codes.long()].to(torch.int32).cpu().numpy()
+
+    check(np.array_equal(torch_cpu(), want), "torch CPU map differs")
+    check(np.array_equal(device_gather(), want), "device gather differs")
+    codes = lut.pack_codes(img)
+    emit({"phase": "routes-host-map", "pixels": n,
+          "lut_map_host_s": best(lambda: lut.lut_map_host(img, table)),
+          "pack_codes_s": best(lambda: lut.pack_codes(img)),
+          "lut_map_host_with_codes_s": best(
+              lambda: lut.lut_map_host(img, table, codes=codes)),
+          "torch_cpu_ops_s": best(torch_cpu),
+          "device_gather_s": best(device_gather),
+          "host_threads": os.cpu_count()})
+    del codes, want
+
+    # the headline call with the codes packed ahead on a thread (as the
+    # route runs) and without (the pack fused into the map), in turns
+    w, h = HEADLINE_W, HEADLINE_H
+    on_min = lut.CodesPrefetch.MIN_PIXELS
+    runs = {"prefetch": [], "no_prefetch": []}
+    for name in ("prefetch", "no_prefetch", "no_prefetch", "prefetch") * 3:
+        lut.CodesPrefetch.MIN_PIXELS = (on_min if name == "prefetch"
+                                        else 1 << 62)
+        t0 = time.perf_counter()
+        TP._quantize_via_samples(img, 256, timer=TP._StageTimer(False, False,
+                                                                dev), **kw)
+        wall = time.perf_counter() - t0
+        runs[name].append([wall, dict(TP.LAST_STAGE_TIMES)])
+    lut.CodesPrefetch.MIN_PIXELS = on_min
+    emit({"phase": "routes-prefetch", "shape": [w, h], **runs})
 
 
 def _block_mse_luv(torch, colors, pal, pmap, w, h, block=8):
@@ -700,8 +973,11 @@ def phase_e2e_default(torch, profile=False):
     import patolette_tpu_torch as pt
     from patolette_tpu_torch import kernels
 
+    from patolette_tpu_torch.ops import lut
+
     w, h, p = W, H, 256
     img = synth_image_f32(w, h)
+    lut.clear_grid_cache()  # the uint8 route's grid is not this call's
 
     def run(colors, **extra):
         ok, pal, pmap, msg = pt.quantize(w, h, colors, p, **extra)
@@ -811,6 +1087,8 @@ SOURCES = {
                       "patolette_tpu/ops/assign.py:81", "main"),
     "kmeans_step": ("patolette_tpu_torch/csrc/kmeans.cu",
                     "patolette_tpu/models/kmeans.py:104", "main"),
+    "lut_argmin": ("patolette_tpu_torch/csrc/lut.cu",
+                   "patolette_tpu/ops/lut.py:145", "u8-lut"),
     "hilbert_keys": ("patolette_tpu_torch/csrc/hilbert.cu",
                      "patolette_tpu/ops/hilbert.py:31", "default"),
     "dither_scan": ("patolette_tpu_torch/csrc/dither.cu",
@@ -841,9 +1119,14 @@ def main():
     phase_build()
     rows = phase_kernels(torch)
     profile = "--profile" in sys.argv[1:]
-    launches = {"main": phase_e2e(torch, profile=profile),
+    main_launches, u8_launches, peak_u8 = phase_e2e(torch, profile=profile)
+    launches = {"main": main_launches, "u8-lut": u8_launches,
                 "default": phase_e2e_default(torch, profile=profile)}
+    img_100mp = phase_e2e_headline(torch, peak_u8)
     phase_golden(torch)
+    if "--routes" in sys.argv[1:]:
+        phase_routes(torch, img_100mp)
+    del img_100mp
 
     line = []
     for r in rows:

@@ -1,10 +1,10 @@
 """Hand-written CUDA kernels of the port and their plain-PyTorch twins.
 
 One module per kernel: ``segment`` (K1), ``lq`` (K2), ``assign`` (K3),
-``kmeans`` (K4), ``hilbert`` (K7), ``dither`` (K8), ``mbd`` (K9). Each
-wrapper takes the twin for tensors on the CPU and launches its kernel (or
-raises) for tensors on the card; ``LAUNCHES`` counts the wrapper calls that
-launched, so a run can show that its path went through them.
+``kmeans`` (K4), ``lut`` (K5), ``hilbert`` (K7), ``dither`` (K8), ``mbd``
+(K9). Each wrapper takes the twin for tensors on the CPU and launches its
+kernel (or raises) for tensors on the card; ``LAUNCHES`` counts the wrapper
+calls that launched, so a run can show that its path went through them.
 """
 
 LAUNCHES = {
@@ -12,6 +12,7 @@ LAUNCHES = {
     "lq_candidates": 0,
     "assign_planar": 0,
     "kmeans_step": 0,
+    "lut_argmin": 0,
     "hilbert_keys": 0,
     "dither_scan": 0,
     "mbd": 0,

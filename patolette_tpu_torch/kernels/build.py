@@ -10,6 +10,11 @@ module is imported: :func:`library` builds on the first kernel launch.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises when it is not 0.
+
+The host half of the LUT route (``csrc/lut_map.cpp``, plain C++ on POSIX
+threads) is built the same way by the host C++ compiler into
+``build/host/<hash>/`` (:func:`host_library`); it runs on the CPU too, so
+the tests reach it.
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "kernels"
 SOURCES = ("segment_sum.cu", "lq_candidates.cu", "assign.cu", "kmeans.cu",
-           "hilbert.cu", "dither.cu", "mbd.cu")
-HEADERS = ("common.cuh",)
+           "hilbert.cu", "dither.cu", "mbd.cu", "lut.cu")
+HEADERS = ("common.cuh", "nearest.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,10 +51,21 @@ SIGNATURES = {
     "pt_hilbert_keys": (_L, _I, _I, _P, _P),
     "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "pt_mbd": (_P, _P, _P, _P, _I, _I, _P),
+    "pt_lut_argmin": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
+}
+
+HOST_SOURCE = "lut_map.cpp"
+HOST_ROOT = CSRC.parent.parent / "build" / "host"
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+HOST_LIB_NAME = "libpatolette_host.so"
+HOST_SIGNATURES = {
+    "pt_pack_codes": (_P, _L, _P, _I),
+    "pt_lut_map": (_P, _P, _L, _P, _I, _P, _I),
 }
 
 _lock = threading.Lock()
 _lib = None
+_host_lib = None
 
 
 def source_hash() -> str:
@@ -71,18 +87,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or PATH)")
 
 
-def build() -> pathlib.Path:
-    """Compile the sources if this hash has no library yet; return its
-    path. Concurrent builders each work in their own directory and the
-    first to finish publishes with an atomic rename."""
-    final = BUILD_ROOT / source_hash()
-    lib_path = final / LIB_NAME
+def _publish(final: pathlib.Path, lib_name: str, make) -> pathlib.Path:
+    """Run ``make(work_dir)`` unless ``final`` already holds the library.
+    Concurrent builders each work in their own directory and the first to
+    finish publishes with an atomic rename."""
+    lib_path = final / lib_name
     if lib_path.exists():
         return lib_path
-    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    work = BUILD_ROOT / f"{final.name}.tmp{os.getpid()}"
+    final.parent.mkdir(parents=True, exist_ok=True)
+    work = final.parent / f"{final.name}.tmp{os.getpid()}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir()
+    make(work)
+    try:
+        os.rename(work, final)
+    except OSError:  # another process published the same hash first
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path
+
+
+def _make_kernels(work: pathlib.Path) -> None:
     nvcc = _nvcc()
     procs = []
     for name in SOURCES:
@@ -111,11 +135,50 @@ def build() -> pathlib.Path:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout[-8000:]}")
     (work / "build.log").write_text("\n".join(log))
-    try:
-        os.rename(work, final)
-    except OSError:  # another process published the same hash first
-        shutil.rmtree(work, ignore_errors=True)
-    return lib_path
+
+
+def build() -> pathlib.Path:
+    """Compile the CUDA sources if this hash has no library yet; return
+    its path."""
+    return _publish(BUILD_ROOT / source_hash(), LIB_NAME, _make_kernels)
+
+
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no host C++ compiler found (set CXX or PATH)")
+    return cxx
+
+
+def host_build() -> pathlib.Path:
+    """Compile ``csrc/lut_map.cpp`` with the host C++ compiler (keyed by
+    the source, the flags and the compiler's version) and return the
+    library's path."""
+    cxx = _cxx()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+    h = hashlib.sha256(" ".join([cxx, *HOST_FLAGS, version]).encode())
+    h.update((CSRC / HOST_SOURCE).read_bytes())
+
+    def make(work):
+        res = subprocess.run(
+            [cxx, *HOST_FLAGS, str(CSRC / HOST_SOURCE), "-o",
+             str(work / HOST_LIB_NAME)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if res.returncode != 0:
+            raise RuntimeError(f"host build failed:\n{res.stdout[-8000:]}")
+
+    return _publish(HOST_ROOT / h.hexdigest()[:16], HOST_LIB_NAME, make)
+
+
+def _load(path: pathlib.Path, signatures: dict):
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def library():
@@ -125,13 +188,19 @@ def library():
         return _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = _load(build(), SIGNATURES)
     return _lib
+
+
+def host_library():
+    """The loaded host library (built on first use)."""
+    global _host_lib
+    if _host_lib is not None:
+        return _host_lib
+    with _lock:
+        if _host_lib is None:
+            _host_lib = _load(host_build(), HOST_SIGNATURES)
+    return _host_lib
 
 
 def check(err: int, name: str) -> None:

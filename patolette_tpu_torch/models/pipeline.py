@@ -1,27 +1,33 @@
 """Quantization pipeline: the public ``quantize`` API of the port.
 
-One route, modelled on the JAX package's resident full-upload path
-(``patolette_tpu/models/pipeline.py::_quantize_full_upload``):
+Two routes, chosen as the JAX package's ``_quantize_body`` chooses them:
 
-    sRGB -> weights (explicit, else MBD saliency with K9 when
-    ``tile_size > 0``) -> working space -> LQ sample draw -> GQ (K1 moments
-    + host f64 DP) -> LQ (K2 with K1) -> centres (K1) -> KMeans (K4) ->
-    Riemersma dither (K7 curve order, K8 scan) or the ICtCp direct map (K3)
-    -> sRGB palette with [-1, -1, -1] fill.
+* **Sampled** (``_quantize_via_samples``, the JAX staged variant): uint8
+  undithered images without saliency of at least 4 MP, and every
+  ``palette_only`` call without saliency. Only the host-drawn palette
+  samples go to the device (``_draw_palette_samples``, the JAX package's
+  exact draws including the S11 reuse); GQ (K1 moments + host f64 DP) ->
+  LQ (K2 with K1) -> KMeans (K4) run on them; the map is K5's 24-bit table
+  over the ICtCp grid, pulled raw and resolved on the host
+  (``ops/lut.py``). Nothing of size N is on the device, so the device
+  budget does not bound these calls.
+* **Resident** (``_quantize_resident``, modelled on
+  ``_quantize_full_upload``): sRGB -> weights (explicit, else MBD saliency
+  with K9 when ``tile_size > 0``) -> working space -> LQ sample draw -> GQ
+  -> LQ -> centres (K1) -> KMeans (K4) -> Riemersma dither (K7 curve
+  order, K8 scan), the ICtCp direct map (K3), or for uint8 undithered
+  images of at least 4 MP the K5 table and the host map -> sRGB palette
+  with [-1, -1, -1] fill. The image stays on the device as three planar
+  f32 channels.
 
-The image stays on the device as three planar f32 channels; the host
-holds only the options, the 512-bucket GQ moments (for the f64 DP), one
-integer per LQ round and the outputs. Every sample draw is on the host:
-``rng = np.random.default_rng(seed)``, the LQ draw first (the JAX package's
-exact draw, so the two LQ samples are the same pixels), then the KMeans
-draw from the same ``rng`` (the JAX package draws that one with
-``jax.random``; see the README's divergence table).
+Every sample draw is on the host from ``np.random.default_rng(seed)``. The
+resident route's LQ draw is the JAX package's exact draw; its KMeans draw
+follows from the same ``rng`` where the JAX package draws with
+``jax.random`` (README divergence T1).
 
 Not in this slice (each returns a typed failure that names it): ``mesh=``
-and images beyond the device budget. uint8 input is normalised on the
-device and takes the same direct map or dither (the 24-bit LUT route and
-the packed uint8 dither feed come later). Above 4 MP without saliency the
-JAX package dithers per row strip; this route dithers the whole image
+and resident images beyond the device budget. Above 4 MP without saliency
+the JAX package dithers per row strip; this route dithers the whole image
 along one curve (README divergence T2).
 """
 
@@ -40,6 +46,7 @@ from patolette_tpu_torch.models import palette as PAL
 from patolette_tpu_torch.models import saliency as SAL
 from patolette_tpu_torch.ops import colorspace as cs
 from patolette_tpu_torch.ops import eigen3
+from patolette_tpu_torch.ops import lut as LUT
 from patolette_tpu_torch.ops import moments as M
 from patolette_tpu_torch.ops.assign import assign_planar
 from patolette_tpu_torch.utils import errors
@@ -57,6 +64,18 @@ LAST_STAGE_TIMES: dict[str, float] = {}
 BYTES_PER_PIXEL = 84
 BYTES_PER_PIXEL_SALIENCY_OR_DITHER = 104
 DEVICE_BUDGET_FRACTION = 0.8
+
+# The JAX package's thresholds of the sampled route (pipeline.py:210-217).
+# They stay its values: the route decides which pixels KMeans sees (S11),
+# so another threshold would give another palette, not only another speed.
+LUT_MIN_PIXELS = 1 << 22
+SAMPLE_MAX = 1 << 22
+
+
+def _lut_min_pixels(palette_size: int) -> int:
+    if palette_size <= 256:
+        return LUT_MIN_PIXELS
+    return LUT.LUT_SIZE * LUT.lut_dtype(palette_size).itemsize
 
 
 def _log(verbose, msg):
@@ -156,16 +175,25 @@ def _finish_palette(palette_work, valid, p, csp):
     return palette
 
 
-def _upload(colors, device):
-    """(N, 3) host image -> 3 x (N,) f32 sRGB channels in [0, 1] on the
-    device; uint8 goes up as bytes and is normalised there."""
+def _put(colors, device):
+    """(N, 3) host pixels -> (N, 3) f32 sRGB in [0, 1] on the device;
+    uint8 goes up as bytes and is normalised there."""
     if colors.dtype == np.uint8:
         x = torch.from_numpy(np.ascontiguousarray(colors)).to(device)
-        x = x.to(torch.float32) * np.float32(1.0 / 255.0)
-    else:
-        x = torch.from_numpy(
-            np.ascontiguousarray(colors, dtype=np.float32)).to(device)
+        return x.to(torch.float32) * np.float32(1.0 / 255.0)
+    return torch.from_numpy(
+        np.ascontiguousarray(colors, dtype=np.float32)).to(device)
+
+
+def _upload(colors, device):
+    """(N, 3) host image -> 3 x (N,) f32 sRGB channels on the device."""
+    x = _put(colors, device)
     return tuple(x[:, k].contiguous() for k in range(3))
+
+
+def _put_weights(w_host, device):
+    return None if w_host is None else torch.from_numpy(
+        np.ascontiguousarray(w_host, dtype=np.float32)).to(device)
 
 
 def _device_budget(device):
@@ -252,8 +280,29 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
         raise NotImplementedError("mesh= (multi-device) is not ported yet")
     device = _resolve_device(device)
     n = width * height
+    p = int(palette_size)
     dither = bool(dither) and not palette_only
     saliency = weights is None and tile_size > 0
+    timer = _StageTimer(verbose, verbose or sync_stages, device)
+
+    # --- the sampled route (pipeline.py:1003-1024 of the JAX package) ---
+    csp = int(color_space)
+    lut_eligible = colors.dtype == np.uint8 and not dither and p <= 65536
+    m_pal = n if not lq_max_samples else min(n, int(lq_max_samples))
+    if kmeans_niter > 0:
+        m_pal = max(m_pal,
+                    min(n, KM.subsample_cap(p, int(kmeans_max_samples))))
+    if (not saliency and m_pal <= SAMPLE_MAX
+            and (palette_only or (lut_eligible and n >= _lut_min_pixels(p)))):
+        return _quantize_via_samples(
+            colors, p, palette_only=palette_only, csp=csp,
+            kmeans_niter=int(kmeans_niter),
+            kmeans_max_samples=int(kmeans_max_samples), verbose=verbose,
+            weights=weights, lq_max_samples=int(lq_max_samples),
+            lq_batch_splits=int(lq_batch_splits), seed=int(seed),
+            device=device, timer=timer,
+        )
+
     per_pixel = (BYTES_PER_PIXEL_SALIENCY_OR_DITHER if saliency or dither
                  else BYTES_PER_PIXEL)
     if n * per_pixel > _device_budget(device):
@@ -262,31 +311,125 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
             "ported yet"
         )
     return _quantize_resident(
-        colors, int(width), int(height), int(palette_size),
+        colors, int(width), int(height), p,
         palette_only=palette_only, dither=dither,
         dither_segment=int(dither_segment),
-        tile_size=float(tile_size) if saliency else 0.0,
-        csp=int(color_space), kmeans_niter=int(kmeans_niter),
+        tile_size=float(tile_size) if saliency else 0.0, csp=csp,
+        kmeans_niter=int(kmeans_niter),
         kmeans_max_samples=int(kmeans_max_samples), verbose=verbose,
         weights=weights, lq_max_samples=int(lq_max_samples),
         lq_batch_splits=int(lq_batch_splits), seed=int(seed), device=device,
-        timer=_StageTimer(verbose, verbose or sync_stages, device),
+        timer=timer,
+        lut_map=lut_eligible and not palette_only and n >= _lut_min_pixels(p),
+    )
+
+
+def _draw_palette_samples(colors, n, w_host, rng, p, lq_max_samples,
+                          kmeans_niter, kmeans_max_samples, device):
+    """Host-side LQ + KMeans sample draws, uploaded and normalised.
+
+    The JAX package's ``_draw_palette_samples`` (pipeline.py:243-290) draw
+    for draw: the LQ draw, then a KMeans draw when n exceeds the KMeans cap
+    unless the LQ sample can stand in for it (S11: unweighted, and the LQ
+    sample already has the cap's size), weights gathered by the same
+    indices. Returns ``(x_lq, w_lq, x_km, w_km)``: (M, 3) f32 sRGB
+    samples and (M,) f32 weights on the device, ``x_km`` None under S11.
+    """
+    if lq_max_samples and n > lq_max_samples:
+        idx = rng.integers(0, n, size=int(lq_max_samples))
+        sub, w_lq_h = colors[idx], None if w_host is None else w_host[idx]
+    else:
+        sub, w_lq_h = colors, w_host
+
+    sub_km_h = w_km_h = None
+    if kmeans_niter > 0:
+        cap = KM.subsample_cap(p, int(kmeans_max_samples))
+        if n > cap and not (len(sub) == cap and w_host is None):
+            idx2 = rng.integers(0, n, size=cap)
+            sub_km_h = colors[idx2]
+            w_km_h = None if w_host is None else w_host[idx2]
+        elif n <= cap and sub is not colors:
+            sub_km_h, w_km_h = colors, w_host
+        # else: KMeans reuses the LQ sample (S11)
+
+    x_km = None if sub_km_h is None else _put(sub_km_h, device)
+    return (_put(sub, device), _put_weights(w_lq_h, device), x_km,
+            _put_weights(w_km_h, device))
+
+
+def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
+                          kmeans_max_samples, verbose, weights,
+                          lq_max_samples, lq_batch_splits, seed, device,
+                          timer):
+    """Sample-upload + LUT route: device work independent of N.
+
+    The palette search needs only its deterministic samples (lq_max_samples
+    for GQ/LQ; the reference's own KMeans cap, refine.c:87), so only those
+    go to the device. The palette map of a uint8 image factors through the
+    2^24 possible colours (``ops/lut.py``): K5 builds one table, it comes
+    back in one raw copy, and the host resolves every pixel, with the codes
+    packed on a thread meanwhile. The JAX package's staged variant
+    (pipeline.py:563-614); its single-program variant is not ported
+    (README divergence T3).
+    """
+    n = colors.shape[0]
+    rng = np.random.default_rng(seed)
+    w_host = (None if weights is None
+              else np.asarray(weights, np.float32).reshape(-1))
+    prefetch = None if palette_only else LUT.CodesPrefetch(colors)
+
+    x_lq, w_lq, x_km, w_km = _draw_palette_samples(
+        colors, n, w_host, rng, p, lq_max_samples, kmeans_niter,
+        kmeans_max_samples, device,
+    )
+    x_lq = cs.srgb_to_working(x_lq, csp)
+    timer.lap("sample-in")
+
+    _log(verbose, "Palette generation")
+    _, _, centers, valid = _gq_lq_palette(
+        x_lq, w_lq, p, lq_batch_splits, verbose, timer
+    )
+
+    if kmeans_niter > 0:
+        _log(verbose, "KMeans refinement")
+        if x_km is None:  # S11: reuse the LQ sample
+            x_km, w_km = x_lq, w_lq
+        else:
+            x_km = cs.srgb_to_working(x_km, csp)
+        centers = KM.lloyd_iterations(x_km, w_km, centers, valid,
+                                      kmeans_niter)
+        timer.lap("kmeans")
+
+    palette_map = None
+    if not palette_only:
+        _log(verbose, "NN mapping (24-bit LUT)")
+        table = LUT.build_lut_device(centers, valid, csp, LUT.lut_dtype(p))
+        timer.lap("lut-build")
+        table = table.cpu()
+        timer.lap("lut-build+pull")
+        palette_map = LUT.lut_map_host(colors, table, codes=prefetch.take())
+        timer.lap("lut-map-host")
+
+    palette = _finish_palette(centers, valid, p, csp)
+    return True, palette, palette_map, errors.exit_code_message(
+        errors.ExitCode.SUCCESS
     )
 
 
 def _quantize_resident(colors, width, height, p, *, palette_only, dither,
                        dither_segment, tile_size, csp, kmeans_niter,
                        kmeans_max_samples, verbose, weights, lq_max_samples,
-                       lq_batch_splits, seed, device, timer):
-    """The resident route: planar image on the device end to end."""
+                       lq_batch_splits, seed, device, timer, lut_map):
+    """The resident route: planar image on the device end to end.
+    ``lut_map``: map a uint8 image through the K5 table and the host
+    (identical to K3's direct map: the table is exact)."""
     n = width * height
+    prefetch = LUT.CodesPrefetch(colors) if lut_map else None
     xp_srgb = _upload(colors, device)
     # weights: explicit > saliency (tile_size > 0 only without them) > none
     w_full = None
     if weights is not None:
-        w_full = torch.from_numpy(
-            np.ascontiguousarray(weights, dtype=np.float32).reshape(-1)
-        ).to(device)
+        w_full = _put_weights(np.asarray(weights).reshape(-1), device)
     timer.lap("stage-in")
 
     if tile_size > 0:
@@ -338,6 +481,12 @@ def _quantize_resident(colors, width, height, p, *, palette_only, dither,
             segment=dither_segment,
         ).cpu().numpy()
         timer.lap("dither")
+    elif lut_map:
+        _log(verbose, "NN mapping (24-bit LUT)")
+        table = LUT.build_lut_device(centers, valid, csp, LUT.lut_dtype(p))
+        palette_map = LUT.lut_map_host(colors, table.cpu(),
+                                       codes=prefetch.take())
+        timer.lap("nn-map")
     elif not palette_only:
         _log(verbose, "NN mapping")
         xi = cs.working_to_ictcp(xp_work, csp)
