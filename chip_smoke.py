@@ -27,13 +27,14 @@ Phases, each printing one JSON line:
      256 colours, 25 KMeans iterations, ICtCp, no dither or saliency): one
      warm call, best of 3, the launch and repeat checks, CIELuv MSE on a
      fixed 1M-pixel subset, peak device memory within 10% of the 4K uint8
-     call's (nothing on the device grows with N);
+     call's (nothing on the device grows with N); then one call at 1024
+     colours, whose table is u16 (K5 must launch, K3 must not, the MSE
+     must be below the 256-colour call's);
   7. golden: the 96x64 inputs against tests/golden/quantize_golden.npz.
 With ``--routes`` (a measurement, not a check) it then times the sampled
-LUT route against the resident route (direct map and LUT map) at 4, 8.3
-and 33 MP uint8, the host map against plain torch CPU ops and a gather on
-the card at 100 MP, and the headline call with and without the codes
-packed ahead on a thread.
+LUT route against the resident route (direct map) at 4, 8.3 and 33 MP
+uint8, and the host map against plain torch CPU ops and a gather on the
+card at 100 MP.
 With ``--profile`` the e2e phases also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
 DIR`` the ptxas report and the profiler tables are written to DIR. Then
@@ -819,14 +820,38 @@ def phase_e2e_headline(torch, peak_4k):
           "launches": launches, "peak_device_bytes": peak,
           "peak_device_bytes_4k_u8": peak_4k, "cieluv_mse_1m": mse,
           "cieluv_mse_cube216_1m": cube, "bit_identical_runs": True})
-    return img
+
+    # 1024 colours on the same image: above 256 entries the table is u16,
+    # and at 100 MP (over _lut_min_pixels(1024) = 2^25) the call keeps the
+    # sampled route, so this path launches K5's u16 instantiation
+    p16 = 1024
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ok, pal16, pmap16, msg = pt.quantize(
+        w, h, img, p16, dither=False, tile_size=0, kmeans_niter=iters,
+        color_space=pt.ColorSpace_ICtCp)
+    wall16 = time.perf_counter() - t0
+    check(ok, f"1024-colour headline quantize failed: {msg}")
+    launches16 = dict(kernels.LAUNCHES)
+    check(launches16["lut_argmin"] > 0 and launches16["assign_planar"] == 0,
+          "the 1024-colour call missed the sampled LUT route")
+    laps16 = dict(pipeline.LAST_STAGE_TIMES)
+    check("lut-map-host" in laps16, "the 1024-colour call missed the route")
+    _check_outputs(pal16, pmap16, p16, w * h)
+    mse16 = _mse_luv(torch, sub, pal16, pmap16[idx])[0]
+    check(np.isfinite(mse16) and mse16 < mse,
+          f"1024-colour CIELuv MSE {mse16} against {mse} with 256")
+    emit({"phase": "e2e-headline-u16", "shape": [w, h], "palette": p16,
+          "kmeans_niter": iters, "wall_s": wall16, "stage_ms": laps16,
+          "launches": launches16, "cieluv_mse_1m": mse16})
+    return img, launches16
 
 
 def phase_routes(torch, img_100mp):
     """One-off measurement: the sampled LUT route against the resident
-    route (K3 direct map, and its LUT branch) at 4, 8.3 and 33 MP uint8,
-    called directly; then the host map at 100 MP against plain torch CPU
-    ops and against a gather on the card."""
+    route (K3 direct map) at 4, 8.3 and 33 MP uint8, called directly, in
+    turns; then the host map at 100 MP against plain torch CPU ops and
+    against a gather on the card."""
     import numpy as np
 
     from patolette_tpu_torch.models import pipeline as TP
@@ -849,23 +874,33 @@ def phase_routes(torch, img_100mp):
 
     for w, h in ROUTE_SHAPES:
         img = synth_image_u8(w, h)
+        routes = {
+            "sampled_lut": lambda: TP._quantize_via_samples(
+                img, 256, timer=TP._StageTimer(False, False, dev), **kw),
+            "resident_direct": lambda: TP._quantize_resident(
+                img, w, h, 256, dither=False, dither_segment=4096,
+                tile_size=0.0, timer=TP._StageTimer(False, False, dev),
+                **kw),
+        }
+        for fn in routes.values():
+            fn()
+        walls = {name: [] for name in routes}
+        laps = {name: [] for name in routes}
+        # in turns, so that a drift of the host's speed hits both alike
+        for name in ("sampled_lut", "resident_direct") * 2 + (
+                "resident_direct", "sampled_lut") * 2:
+            t0 = time.perf_counter()
+            routes[name]()
+            walls[name].append(time.perf_counter() - t0)
+            laps[name].append(dict(TP.LAST_STAGE_TIMES))
         out = {"phase": "routes", "shape": [w, h]}
-        for name, fn in (
-            ("sampled_lut", lambda: TP._quantize_via_samples(
-                img, 256, timer=TP._StageTimer(False, False, dev), **kw)),
-            ("resident_direct", lambda: TP._quantize_resident(
-                img, w, h, 256, dither=False, dither_segment=4096,
-                tile_size=0.0, timer=TP._StageTimer(False, False, dev),
-                lut_map=False, **kw)),
-            ("resident_lut", lambda: TP._quantize_resident(
-                img, w, h, 256, dither=False, dither_segment=4096,
-                tile_size=0.0, timer=TP._StageTimer(False, False, dev),
-                lut_map=True, **kw)),
-        ):
-            out[name + "_best_s"], out[name + "_wall_s"] = best(fn)
-            out[name + "_stage_ms"] = dict(TP.LAST_STAGE_TIMES)
+        for name in routes:
+            out[name + "_wall_s"] = walls[name]
+            out[name + "_median_s"] = statistics.median(walls[name])
+            out[name + "_stage_ms"] = laps[name][
+                walls[name].index(min(walls[name]))]
         emit(out)
-        del img
+        del img, routes
 
     img = img_100mp
     n = img.shape[0]
@@ -888,32 +923,11 @@ def phase_routes(torch, img_100mp):
 
     check(np.array_equal(torch_cpu(), want), "torch CPU map differs")
     check(np.array_equal(device_gather(), want), "device gather differs")
-    codes = lut.pack_codes(img)
     emit({"phase": "routes-host-map", "pixels": n,
           "lut_map_host_s": best(lambda: lut.lut_map_host(img, table)),
-          "pack_codes_s": best(lambda: lut.pack_codes(img)),
-          "lut_map_host_with_codes_s": best(
-              lambda: lut.lut_map_host(img, table, codes=codes)),
           "torch_cpu_ops_s": best(torch_cpu),
           "device_gather_s": best(device_gather),
           "host_threads": os.cpu_count()})
-    del codes, want
-
-    # the headline call with the codes packed ahead on a thread (as the
-    # route runs) and without (the pack fused into the map), in turns
-    w, h = HEADLINE_W, HEADLINE_H
-    on_min = lut.CodesPrefetch.MIN_PIXELS
-    runs = {"prefetch": [], "no_prefetch": []}
-    for name in ("prefetch", "no_prefetch", "no_prefetch", "prefetch") * 3:
-        lut.CodesPrefetch.MIN_PIXELS = (on_min if name == "prefetch"
-                                        else 1 << 62)
-        t0 = time.perf_counter()
-        TP._quantize_via_samples(img, 256, timer=TP._StageTimer(False, False,
-                                                                dev), **kw)
-        wall = time.perf_counter() - t0
-        runs[name].append([wall, dict(TP.LAST_STAGE_TIMES)])
-    lut.CodesPrefetch.MIN_PIXELS = on_min
-    emit({"phase": "routes-prefetch", "shape": [w, h], **runs})
 
 
 def _block_mse_luv(torch, colors, pal, pmap, w, h, block=8):
@@ -1098,6 +1112,10 @@ SOURCES = {
 }
 
 
+# kernel rows of another instantiation, counted on the path that runs it
+ROW_PATHS = {"lut_argmin[1024]": "u16-lut"}
+
+
 def main():
     try:
         import torch
@@ -1122,7 +1140,7 @@ def main():
     main_launches, u8_launches, peak_u8 = phase_e2e(torch, profile=profile)
     launches = {"main": main_launches, "u8-lut": u8_launches,
                 "default": phase_e2e_default(torch, profile=profile)}
-    img_100mp = phase_e2e_headline(torch, peak_u8)
+    img_100mp, launches["u16-lut"] = phase_e2e_headline(torch, peak_u8)
     phase_golden(torch)
     if "--routes" in sys.argv[1:]:
         phase_routes(torch, img_100mp)
@@ -1132,6 +1150,7 @@ def main():
     for r in rows:
         key = r["name"].split("[")[0]
         src, replaces, path = SOURCES[key]
+        path = ROW_PATHS.get(r["name"], path)
         line.append({
             "name": r["name"], "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[path][key],

@@ -2,11 +2,9 @@
 // 24-bit codes (r << 16 | g << 8 | b) and resolve them through the (2^24,)
 // table K5 built, on POSIX threads, into the int32 palette map.
 //
-// Counterpart of the JAX package's native pack and gather (lut_map_u8,
-// pack_codes, lut_map_codes), written anew for the port: one pass over the
-// pixels with the codes packed in registers, or two when the codes were
-// packed ahead on a background thread while the card built the palette.
-// The work is bound by host memory: 3 bytes read and 4 written a pixel,
+// Counterpart of the JAX package's native gather (lut_map_u8), written anew
+// for the port: one pass over the pixels with the codes packed in
+// registers. The work is bound by host memory: 3 bytes read and 4 written a pixel,
 // plus the table reads (16.8 MB u8 or 33.5 MB u16, mostly cache hits on an
 // image's coherent colours).
 //
@@ -23,11 +21,10 @@ namespace {
 constexpr int kMaxThreads = 64;
 
 struct Job {
-  const uint8_t* px;      // (N, 3) pixels, or null when codes are given
-  const int32_t* codes;   // (N,) packed codes, or null
-  const void* table;      // (2^24,) entries of table_bytes each, or null
+  const uint8_t* px;      // (N, 3) pixels
+  const void* table;      // (2^24,) entries of table_bytes each
   int table_bytes;
-  int32_t* out;           // (N,) map, or the packed codes when table is null
+  int32_t* out;           // (N,) map
   long long begin, end;
 };
 
@@ -38,20 +35,14 @@ inline int32_t pack(const uint8_t* p) {
 template <typename T>
 void gather(const Job& j) {
   const T* tab = (const T*)j.table;
-  if (j.codes) {
-    for (long long i = j.begin; i < j.end; ++i) j.out[i] = tab[j.codes[i]];
-  } else {
-    for (long long i = j.begin; i < j.end; ++i) {
-      j.out[i] = tab[pack(j.px + 3 * i)];
-    }
+  for (long long i = j.begin; i < j.end; ++i) {
+    j.out[i] = tab[pack(j.px + 3 * i)];
   }
 }
 
 void* work(void* arg) {
   const Job& j = *(const Job*)arg;
-  if (!j.table) {
-    for (long long i = j.begin; i < j.end; ++i) j.out[i] = pack(j.px + 3 * i);
-  } else if (j.table_bytes == 1) {
+  if (j.table_bytes == 1) {
     gather<uint8_t>(j);
   } else if (j.table_bytes == 2) {
     gather<uint16_t>(j);
@@ -90,22 +81,12 @@ void run(Job proto, long long n, int nthreads) {
 
 }  // namespace
 
-// px: (N, 3) uint8; codes: (N,) int32 out. Returns 0.
-PT_EXPORT int pt_pack_codes(const uint8_t* px, long long n, int32_t* codes,
-                            int nthreads) {
-  Job j = {px, nullptr, nullptr, 0, codes, 0, 0};
-  run(j, n, nthreads);
-  return 0;
-}
-
-// Either px ((N, 3) uint8) or codes ((N,) int32 from pt_pack_codes);
-// table: (2^24,) of table_bytes (1, 2 or 4) each; out: (N,) int32.
-// Returns 0, or 1 for another entry size.
-PT_EXPORT int pt_lut_map(const uint8_t* px, const int32_t* codes, long long n,
-                         const void* table, int table_bytes, int32_t* out,
-                         int nthreads) {
+// px: (N, 3) uint8; table: (2^24,) of table_bytes (1, 2 or 4) each;
+// out: (N,) int32. Returns 0, or 1 for another entry size.
+PT_EXPORT int pt_lut_map(const uint8_t* px, long long n, const void* table,
+                         int table_bytes, int32_t* out, int nthreads) {
   if (table_bytes != 1 && table_bytes != 2 && table_bytes != 4) return 1;
-  Job j = {codes ? nullptr : px, codes, table, table_bytes, out, 0, 0};
+  Job j = {px, table, table_bytes, out, 0, 0};
   run(j, n, nthreads);
   return 0;
 }

@@ -59,8 +59,7 @@ HOST_ROOT = CSRC.parent.parent / "build" / "host"
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 HOST_LIB_NAME = "libpatolette_host.so"
 HOST_SIGNATURES = {
-    "pt_pack_codes": (_P, _L, _P, _I),
-    "pt_lut_map": (_P, _P, _L, _P, _I, _P, _I),
+    "pt_lut_map": (_P, _L, _P, _I, _P, _I),
 }
 
 _lock = threading.Lock()

@@ -15,10 +15,11 @@ Two routes, chosen as the JAX package's ``_quantize_body`` chooses them:
   ``_quantize_full_upload``): sRGB -> weights (explicit, else MBD saliency
   with K9 when ``tile_size > 0``) -> working space -> LQ sample draw -> GQ
   -> LQ -> centres (K1) -> KMeans (K4) -> Riemersma dither (K7 curve
-  order, K8 scan), the ICtCp direct map (K3), or for uint8 undithered
-  images of at least 4 MP the K5 table and the host map -> sRGB palette
-  with [-1, -1, -1] fill. The image stays on the device as three planar
-  f32 channels.
+  order, K8 scan) or the ICtCp direct map (K3) -> sRGB palette with
+  [-1, -1, -1] fill. The image stays on the device as three planar f32
+  channels. The JAX package maps uint8 undithered images of at least 4 MP
+  on this route through its 24-bit table, to spare the index download over
+  its host link; the table equals the direct map, so the port keeps K3.
 
 Every sample draw is on the host from ``np.random.default_rng(seed)``. The
 resident route's LQ draw is the JAX package's exact draw; its KMeans draw
@@ -320,7 +321,6 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
         weights=weights, lq_max_samples=int(lq_max_samples),
         lq_batch_splits=int(lq_batch_splits), seed=int(seed), device=device,
         timer=timer,
-        lut_map=lut_eligible and not palette_only and n >= _lut_min_pixels(p),
     )
 
 
@@ -367,8 +367,7 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
     for GQ/LQ; the reference's own KMeans cap, refine.c:87), so only those
     go to the device. The palette map of a uint8 image factors through the
     2^24 possible colours (``ops/lut.py``): K5 builds one table, it comes
-    back in one raw copy, and the host resolves every pixel, with the codes
-    packed on a thread meanwhile. The JAX package's staged variant
+    back in one raw copy, and the host resolves every pixel. The JAX package's staged variant
     (pipeline.py:563-614); its single-program variant is not ported
     (README divergence T3).
     """
@@ -376,7 +375,6 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
     rng = np.random.default_rng(seed)
     w_host = (None if weights is None
               else np.asarray(weights, np.float32).reshape(-1))
-    prefetch = None if palette_only else LUT.CodesPrefetch(colors)
 
     x_lq, w_lq, x_km, w_km = _draw_palette_samples(
         colors, n, w_host, rng, p, lq_max_samples, kmeans_niter,
@@ -407,7 +405,7 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
         timer.lap("lut-build")
         table = table.cpu()
         timer.lap("lut-build+pull")
-        palette_map = LUT.lut_map_host(colors, table, codes=prefetch.take())
+        palette_map = LUT.lut_map_host(colors, table)
         timer.lap("lut-map-host")
 
     palette = _finish_palette(centers, valid, p, csp)
@@ -419,12 +417,9 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
 def _quantize_resident(colors, width, height, p, *, palette_only, dither,
                        dither_segment, tile_size, csp, kmeans_niter,
                        kmeans_max_samples, verbose, weights, lq_max_samples,
-                       lq_batch_splits, seed, device, timer, lut_map):
-    """The resident route: planar image on the device end to end.
-    ``lut_map``: map a uint8 image through the K5 table and the host
-    (identical to K3's direct map: the table is exact)."""
+                       lq_batch_splits, seed, device, timer):
+    """The resident route: planar image on the device end to end."""
     n = width * height
-    prefetch = LUT.CodesPrefetch(colors) if lut_map else None
     xp_srgb = _upload(colors, device)
     # weights: explicit > saliency (tile_size > 0 only without them) > none
     w_full = None
@@ -481,12 +476,6 @@ def _quantize_resident(colors, width, height, p, *, palette_only, dither,
             segment=dither_segment,
         ).cpu().numpy()
         timer.lap("dither")
-    elif lut_map:
-        _log(verbose, "NN mapping (24-bit LUT)")
-        table = LUT.build_lut_device(centers, valid, csp, LUT.lut_dtype(p))
-        palette_map = LUT.lut_map_host(colors, table.cpu(),
-                                       codes=prefetch.take())
-        timer.lap("nn-map")
     elif not palette_only:
         _log(verbose, "NN mapping")
         xi = cs.working_to_ictcp(xp_work, csp)

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 
 import numpy as np
 import torch
@@ -132,88 +131,26 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _pixels(colors_u8) -> np.ndarray:
-    px = np.ascontiguousarray(colors_u8)
-    if px.dtype != np.uint8 or px.ndim != 2 or px.shape[1] != 3:
-        raise ValueError("expected (N, 3) uint8 pixels")
-    return px
+def lut_map_host(colors_u8, table) -> np.ndarray:
+    """Resolve (N, 3) uint8 pixels through the (2^24,) table on the host,
+    each pixel packed to its 24-bit code ``r << 16 | g << 8 | b`` and
+    gathered in one pass.
 
-
-def pack_codes(colors_u8) -> np.ndarray:
-    """(N, 3) uint8 pixels -> (N,) int32 codes ``r << 16 | g << 8 | b``."""
-    px = _pixels(colors_u8)
-    codes = np.empty((px.shape[0],), np.int32)
-    build.host_library().pt_pack_codes(_ptr(px), px.shape[0], _ptr(codes),
-                                       _threads())
-    return codes
-
-
-class CodesPrefetch:
-    """Background 24-bit pack of the image while the card builds the
-    palette and the table.
-
-    The host map splits into the pack (image only) and the gather (needs
-    the table); the pack runs here on a thread (the host library releases
-    the interpreter lock), so only the gather stays on the critical path.
-    No thread (``take() -> None``) below ``MIN_PIXELS``, where the split
-    costs more than it saves, or above ``MAX_PIXELS`` (4 B a pixel of
-    codes; 1 GB).
-    """
-
-    MIN_PIXELS = 1 << 22
-    MAX_PIXELS = 1 << 28
-
-    def __init__(self, colors_u8):
-        self._thread = None
-        self._codes = None
-        self._error = None
-        n = len(colors_u8)
-        if (colors_u8.dtype == np.uint8
-                and self.MIN_PIXELS <= n <= self.MAX_PIXELS):
-            def work():
-                try:
-                    self._codes = pack_codes(colors_u8)
-                except Exception as e:  # noqa: BLE001 -- raised by take()
-                    self._error = e
-
-            self._thread = threading.Thread(target=work, daemon=True)
-            self._thread.start()
-
-    def take(self) -> np.ndarray | None:
-        """Wait for and return the packed codes (None when not running);
-        raises what the pack raised."""
-        if self._thread is not None:
-            self._thread.join()
-            self._thread = None
-        if self._error is not None:
-            raise self._error
-        return self._codes
-
-
-def lut_map_host(colors_u8, table, codes=None) -> np.ndarray:
-    """Resolve (N, 3) uint8 pixels through the (2^24,) table on the host.
-
-    ``table``: u8, u16 or int32 entries, a host tensor or numpy array;
-    ``codes``: optional int32 codes from :class:`CodesPrefetch` (skips the
-    pack). Returns the (N,) int32 palette map, the public map type.
+    ``table``: u8, u16 or int32 entries, a host tensor or numpy array.
+    Returns the (N,) int32 palette map, the public map type.
     """
     if isinstance(table, torch.Tensor):
         table = table.numpy()
     table = np.ascontiguousarray(table)
     if table.shape != (LUT_SIZE,) or table.dtype.itemsize not in (1, 2, 4):
         raise ValueError("expected a (2^24,) table of 1, 2 or 4 byte entries")
-    if codes is None:
-        px = _pixels(colors_u8)
-        n = px.shape[0]
-    else:
-        px = None
-        codes = np.ascontiguousarray(codes, dtype=np.int32)
-        n = codes.shape[0]
+    px = np.ascontiguousarray(colors_u8)
+    if px.dtype != np.uint8 or px.ndim != 2 or px.shape[1] != 3:
+        raise ValueError("expected (N, 3) uint8 pixels")
+    n = px.shape[0]
     out = np.empty((n,), np.int32)
     err = build.host_library().pt_lut_map(
-        None if px is None else _ptr(px),
-        None if codes is None else _ptr(codes), n, _ptr(table),
-        table.dtype.itemsize, _ptr(out), _threads())
+        _ptr(px), n, _ptr(table), table.dtype.itemsize, _ptr(out), _threads())
     if err:
         raise RuntimeError(f"lut_map_host: error {err}")
     return out

@@ -103,7 +103,8 @@ def test_table_matches_direct_assign():
     rng = np.random.default_rng(3)
     pix = rng.integers(0, 256, size=(4096, 3), dtype=np.uint8)
     pix[0], pix[1] = 0, 255
-    codes = TL.pack_codes(pix)
+    codes = ((pix[:, 0].astype(np.int64) << 16)
+             | (pix[:, 1].astype(np.int64) << 8) | pix[:, 2])
     inv = np.float32(1.0 / 255.0)
     chans = tuple(torch.from_numpy(pix[:, k].copy()).to(torch.float32) * inv
                   for k in range(3))
@@ -114,7 +115,7 @@ def test_table_matches_direct_assign():
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int32])
-def test_lut_map_host(dtype, monkeypatch):
+def test_lut_map_host(dtype):
     rng = np.random.default_rng(4)
     img = rng.integers(0, 256, size=(100_003, 3), dtype=np.uint8)
     img[:64] = 255  # code 0xFFFFFF, the table's last entry
@@ -124,22 +125,25 @@ def test_lut_map_host(dtype, monkeypatch):
              | (img[:, 1].astype(np.int64) << 8) | img[:, 2])
     want = table[codes]
     assert codes.max() == 0xFFFFFF and codes.min() == 0
-    np.testing.assert_array_equal(TL.pack_codes(img), codes)
 
     out = TL.lut_map_host(img, torch.from_numpy(table))
     assert out.dtype == np.int32
     np.testing.assert_array_equal(out, want)
-
-    monkeypatch.setattr(TL.CodesPrefetch, "MIN_PIXELS", 0)
-    prefetch = TL.CodesPrefetch(img)
-    out2 = TL.lut_map_host(img, table, codes=prefetch.take())
+    # a strided view of the pixels maps the same as a contiguous copy
+    out2 = TL.lut_map_host(np.asfortranarray(img), table)
     assert out2.dtype == np.int32
     np.testing.assert_array_equal(out2, want)
 
 
-def test_codes_prefetch_is_off_for_small_images():
-    img = np.zeros((16, 3), np.uint8)
-    assert TL.CodesPrefetch(img).take() is None
+@pytest.mark.parametrize("pixels, table", [
+    (np.zeros((16, 3), np.float32), np.zeros((TL.LUT_SIZE,), np.uint8)),
+    (np.zeros((16, 4), np.uint8), np.zeros((TL.LUT_SIZE,), np.uint8)),
+    (np.zeros((16, 3), np.uint8), np.zeros((TL.LUT_SIZE - 1,), np.uint8)),
+    (np.zeros((16, 3), np.uint8), np.zeros((TL.LUT_SIZE,), np.int64)),
+])
+def test_lut_map_host_rejects_bad_inputs(pixels, table):
+    with pytest.raises(ValueError):
+        TL.lut_map_host(pixels, table)
 
 
 def test_grid_cache_reuse(monkeypatch):

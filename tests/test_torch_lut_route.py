@@ -1,6 +1,6 @@
 """The port's sampled uint8 route (host-drawn samples, palette search on
-them, K5 table, host map) and the resident route's LUT branch, against the
-JAX package's routes on the same inputs.
+them, K5 table, host map), and the resident route's uint8 direct map,
+against the JAX package's routes on the same inputs.
 
 Both sides run with ``LUT_MIN_PIXELS = 0``, so small images take the LUT
 routes, and the JAX package takes its staged routes
@@ -18,8 +18,9 @@ Tolerances:
     different split would move entries by > 1e-2.
   * sampled against the port's own resident route with no sampling in
     play: identical palette and map (the table is a wire format, not an
-    approximation); likewise the resident route's LUT branch against its
-    direct map.
+    approximation).
+  * the port's resident direct map against the JAX resident route's LUT
+    branch (saliency, uint8, no dither): as against JAX's staged route.
   * against JAX's default fused route (f32 device GQ DP): palette atol
     2e-3, map >= 99.9%, JAX's own tolerance between its two routes
     (``tests/test_lut.py::test_fast_path_matches_full_path``).
@@ -135,19 +136,20 @@ def test_sampled_against_jax_fused(port_64x64, monkeypatch):
     _close(*port_64x64, jpal, jmap, 2e-3)
 
 
-def test_resident_lut_branch_with_saliency(monkeypatch):
-    """Saliency + uint8 + no dither stays on the resident route; its map
-    through the table equals its direct map."""
+def test_saliency_u8_direct_map_against_jax_lut_branch():
+    """Saliency + uint8 + no dither stays on the resident route. The JAX
+    package maps it through its 24-bit table (its resident route's LUT
+    branch, at LUT_MIN_PIXELS = 0 here); the port maps it with K3 directly.
+    The table is exact, so the two maps agree as the routes' palettes do."""
     x = _large_u8(96, 64, seed=4)
     kw = dict(ICTCP, tile_size=256.0, kmeans_niter=2)
     ok, pal, pmap, msg = _port(96, 64, x, 16, **kw)
     assert ok, msg
-    assert "saliency" in TP.LAST_STAGE_TIMES
-    monkeypatch.setattr(TP, "LUT_MIN_PIXELS", 1 << 22)
-    ok, dpal, dmap, msg = _port(96, 64, x, 16, **kw)
-    assert ok, msg
-    np.testing.assert_array_equal(pal, dpal)
-    np.testing.assert_array_equal(pmap, dmap)
+    assert {"saliency", "nn-map"} <= set(TP.LAST_STAGE_TIMES)
+    assert "lut-map-host" not in TP.LAST_STAGE_TIMES
+    jok, jpal, jmap, jmsg = jpt.quantize(96, 64, x, 16, **kw)
+    assert jok, jmsg
+    _close(pal, pmap, jpal, jmap, 1e-3)
 
 
 def test_palette_only_float_against_jax():
