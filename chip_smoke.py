@@ -11,17 +11,21 @@ Phases, each printing one JSON line:
      CUDA events beside the plain version, a PyTorch library call where one
      computes the same function, and the least time the card could take;
      K5's u8 and u16 tables must also equal K3's map of all 2^24 codes;
+     K10 must equal its plain version bit for bit in every target, input
+     kind and working space, and on all 2^24 codes;
   4. e2e: quantize() of a 4K float32 image to 256 colours with 32 KMeans
-     iterations and no dither or saliency (K1-K4 must launch, two runs
-     must agree bit for bit), then the same pixels as uint8, which take the
-     sampled LUT route (K5, K1, K2, K4 must launch and K3 must not, two
-     runs must agree bit for bit, CIELuv MSE within 1% of the float32
-     call's);
+     iterations and no dither or saliency (K1-K4 and K10 must launch, two
+     runs must agree bit for bit, peak device bytes per pixel at or below
+     the pipeline's BYTES_PER_PIXEL), then the same pixels as uint8, which
+     take the sampled LUT route (K5, K1, K2, K4, K10 must launch and K3
+     must not, two runs must agree bit for bit, CIELuv MSE within 1% of
+     the float32 call's);
   5. e2e-default: the library's default call on the same image (MBD
-     saliency, weighted palette, Riemersma dither; K7, K8, K9, K1, K2 and
-     K4 must launch, two runs must agree bit for bit, the CIELuv MSE must
-     be under half the 216-colour cube's dithered the same way, and the
-     dither must not lose to the undithered map on 8x8 block means),
+     saliency, weighted palette, Riemersma dither; K7, K8, K9, K1, K2, K4
+     and K10 must launch, two runs must agree bit for bit, the CIELuv MSE
+     must be under half the 216-colour cube's dithered the same way, the
+     dither must not lose to the undithered map on 8x8 block means, peak
+     bytes per pixel at or below BYTES_PER_PIXEL_SALIENCY_OR_DITHER),
      float32 and uint8;
   6. e2e-headline: bench.py's call through the port (10000x10000 uint8,
      256 colours, 25 KMeans iterations, ICtCp, no dither or saliency): one
@@ -30,7 +34,16 @@ Phases, each printing one JSON line:
      call's (nothing on the device grows with N); then one call at 1024
      colours, whose table is u16 (K5 must launch, K3 must not, the MSE
      must be below the 256-colour call's);
-  7. golden: the 96x64 inputs against tests/golden/quantize_golden.npz.
+  7. the streamed route: e2e-strip-dither, the 4K float32 image dithered
+     without saliency on 2 row strips (K7, K8, K10, K1, K2, K4 must launch,
+     K3 and K9 must not, bit-identical reruns, the dither checks of
+     e2e-default); e2e-strip-headline, the 100 MP uint8 image dithered on
+     6 strips through the packed feed, then a 7680x4320 uint8 image on 2
+     (peak device memory of the 100 MP call at most 1.1x the 33 MP
+     call's); e2e-over-budget, the 4K undithered call under a lowered
+     device budget (its map equal to K3's whole-image map against the
+     same palette, its CIELuv MSE within 1% of the resident call's);
+  8. golden: the 96x64 inputs against tests/golden/quantize_golden.npz.
 With ``--routes`` (a measurement, not a check) it then times the sampled
 LUT route against the resident route (direct map) at 4, 8.3 and 33 MP
 uint8, and the host map against plain torch CPU ops and a gather on the
@@ -62,6 +75,9 @@ N_SAMPLES = 1 << 18
 P_LARGE = 8192
 # bench.py's headline image, and the sizes the --routes table compares.
 HEADLINE_W, HEADLINE_H = 10000, 10000
+# the uint8 image the strip dither's 100 MP peak is held against: 2 strips
+# of about the size of the 100 MP call's 6
+STRIP_33MP_W, STRIP_33MP_H = 7680, 4320
 ROUTE_SHAPES = ((2048, 2048), (3840, 2160), (7680, 4320))
 
 
@@ -74,20 +90,23 @@ def _out_dir():
         return out
     return None
 
-# H100 SXM published peaks (dense): HBM bytes/s and f32 non-tensor FLOP/s.
+# H100 SXM published peaks (dense): HBM bytes/s, f32 and f64 non-tensor
+# FLOP/s (f64 at half the f32 rate).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 33.5e12
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, f64_flops=0):
     """Least time for the work: the larger of bytes over the memory rate
-    and f32 operations over the f32 rate; also which one bounds it."""
+    and the operations over their type's rate (f32, f64); also which one
+    bounds it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + f64_flops / PEAK_F64_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -513,6 +532,138 @@ def kernel_k9(torch, rows):
                      bound_by=by))
 
 
+# K10's operations per pixel, (f32, f64), read off csrc/colorspace.cu: an
+# _fma is an f64 multiply and add, a pow counts as ONE f64 operation (the
+# least it could cost; libdevice's double pow runs tens of instructions),
+# comparisons, selects and clamps count as f32 operations.
+_DECODE, _ENCODE, _MAT = (5, 1), (4, 3), (3, 12)
+_PQ_INV, _PQ_UNIT = (3, 6), (4, 4)
+_XYZ_LUV, _LUV_XYZ, _LAB_F = (12, 7), (20, 6), (13, 5)
+
+
+def _ops(*parts):
+    return (sum(p[0] for p in parts), sum(p[1] for p in parts))
+
+
+_TO_XYZ = _ops(*[_DECODE] * 3, _MAT)
+_TO_2020 = _ops(_TO_XYZ, _MAT)
+_2020_ICTCP = _ops(_MAT, *[_PQ_INV] * 3, _MAT)
+_TO_ICTCP = _ops(_TO_2020, _2020_ICTCP)
+_LUV_2020 = _ops(_LUV_XYZ, _MAT)
+_2020_SRGB = _ops(_MAT, *[_ENCODE] * 3)
+_ICTCP_2020 = _ops(_MAT, *[_PQ_UNIT] * 3, _MAT)
+_WORKING = {0: (0, 0), 1: _ops(_TO_XYZ, _XYZ_LUV), 2: _TO_ICTCP}
+_W_ICTCP = {0: _TO_ICTCP, 1: _ops(_LUV_2020, _2020_SRGB, _TO_ICTCP),
+            2: (0, 0)}
+_W_2020 = {0: _TO_2020, 1: _LUV_2020, 2: _ICTCP_2020}
+
+
+def k10_ops(target, cs):
+    """(f32, f64) operations per pixel of one K10 target in space cs."""
+    if target == "working":
+        return _WORKING[cs]
+    if target == "ictcp":
+        return _ops(_WORKING[cs], _W_ICTCP[cs])
+    if target == "rec2020":
+        return _ops(_WORKING[cs], _W_2020[cs])
+    if target == "rec2020_direct":
+        return _TO_2020
+    if target == "lab":
+        return _ops(_TO_XYZ, _LAB_F)
+    if target == "working_to_ictcp":
+        return _W_ICTCP[cs]
+    return _W_2020[cs]
+
+
+# K10's timed rows: (name, input, target, space, the path that gives its
+# launches, the JAX composite it stands for). Every composite, input kind
+# and space is checked for bit identity; these are the ones timed.
+_JCS = "patolette_tpu/ops/colorspace.py:"
+K10_ROWS = (
+    ("color_convert[f32x3>working]", "f32x3", "working", 2, "main",
+     _JCS + "353"),
+    ("color_convert[codes>ictcp]", "codes", "ictcp", 2, "u8-lut",
+     "patolette_tpu/ops/lut.py:87"),
+    ("color_convert[lab]", "f32", "lab", 0, "default", _JCS + "329"),
+    ("color_convert[f32x3>rec2020]", "f32x3", "rec2020", 2,
+     "strip-dither", _JCS + "365"),
+    ("color_convert[u8>rec2020_direct]", "u8", "rec2020_direct", 0,
+     "strip-u8", _JCS + "301"),
+    ("color_convert[f32x3>ictcp]", "f32x3", "ictcp", 2, "over-budget",
+     _JCS + "376"),
+)
+
+
+def kernel_k10(torch, rows):
+    """K10 against its plain version on the card, bit for bit: every
+    target in every working space from planar f32, (N, 3) f32 and (N, 3)
+    uint8 4K pixels, the working-space targets from each space's working
+    planes, and all 2^24 codes to ICtCp (also equal to the same codes sent
+    as uint8 pixels, as the LUT's grid must be)."""
+    import numpy as np
+
+    from patolette_tpu_torch.kernels.colorspace import (color_convert,
+                                                        color_convert_plain)
+
+    n = W * H
+    img = synth_image_f32(W, H)
+    x32 = torch.from_numpy(img).to(DEV)
+    x8 = torch.from_numpy(np.round(img * 255.0).astype(np.uint8)).to(DEV)
+    planes = tuple(x32[:, k].contiguous() for k in range(3))
+    codes = torch.arange(1 << 24, dtype=torch.int32, device=DEV)
+    inputs = {"f32": planes, "f32x3": x32, "u8": x8, "codes": codes}
+
+    def differing(got, want):
+        return sum(int((g != w).sum()) for g, w in zip(got, want))
+
+    cases = []
+    for c in (0, 1, 2):
+        work = color_convert_plain(planes, c, "working")
+        for target in ("working_to_ictcp", "working_to_rec2020"):
+            cases.append((f"work>{target}[{c}]", work, c, target))
+        for kind in ("f32", "f32x3", "u8"):
+            for target in ("working", "ictcp", "rec2020", "rec2020_direct",
+                           "lab"):
+                cases.append((f"{kind}>{target}[{c}]", inputs[kind], c,
+                              target))
+        cases.append((f"codes>ictcp[{c}]", codes, c, "ictcp"))
+    diffs = {}
+    for name, x, c, target in cases:
+        got = color_convert(x, c, target)
+        want = color_convert_plain(x, c, target)
+        torch.cuda.synchronize()
+        check(all(g.shape == (x[0] if isinstance(x, tuple) else x).shape[:1]
+                  for g in got), f"K10 {name}: bad shape")
+        diffs[name] = differing(got, want)
+        del got, want
+    # the grid (codes) equals the same colours sent as uint8 pixels
+    px = torch.stack([(codes >> s) & 0xFF for s in (16, 8, 0)],
+                     1).to(torch.uint8).contiguous()
+    for c in (0, 1, 2):
+        diffs[f"codes=u8 pixels[{c}]"] = differing(
+            color_convert(codes, c, "ictcp"), color_convert(px, c, "ictcp"))
+    del px
+    bad = {k: v for k, v in diffs.items() if v}
+    check(not bad, f"K10 differs from its plain version: {bad}")
+    emit({"phase": "kernel-k10-identity", "cases": len(diffs),
+          "differing_values": sum(diffs.values())})
+
+    for name, kind, target, c, _, _ in K10_ROWS:
+        x = inputs[kind]
+        m = (x[0] if isinstance(x, tuple) else x).shape[0]
+        again = color_convert(x, c, target)
+        ms = time_ms(lambda: color_convert(x, c, target))
+        plain = time_ms(lambda: color_convert_plain(x, c, target), reps=3,
+                        warm=1)
+        in_bytes = {"u8": 3, "codes": 4}.get(kind, 12)
+        f32_ops, f64_ops = k10_ops(target, c)
+        b, by = bound_ms(m * (in_bytes + 12), m * f32_ops, m * f64_ops)
+        rows.append(dict(name=name, shape=[m, c], max_abs_err=float(
+            differing(again, color_convert_plain(x, c, target))),
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
+            bound_by=by, ops_per_pixel=[f32_ops, f64_ops]))
+
+
 def phase_kernels(torch):
     rows = []
     kernel_k1(torch, rows)
@@ -524,6 +675,7 @@ def phase_kernels(torch):
     kernel_k7(torch, rows)
     kernel_k8(torch, rows)
     kernel_k9(torch, rows)
+    kernel_k10(torch, rows)
     for r in rows:
         emit(dict(phase="kernel", **r))
     return rows
@@ -637,11 +789,15 @@ def _profile_call(torch, call, name):
 
 # Kernels each path must launch (names of kernels.LAUNCHES).
 MAIN_PATH_KERNELS = ("segment_sum", "lq_candidates", "assign_planar",
-                     "kmeans_step")
+                     "kmeans_step", "color_convert")
 U8_LUT_KERNELS = ("lut_argmin", "segment_sum", "lq_candidates",
-                  "kmeans_step")
+                  "kmeans_step", "color_convert")
 DEFAULT_PATH_KERNELS = ("hilbert_keys", "dither_scan", "mbd", "segment_sum",
-                        "lq_candidates", "kmeans_step")
+                        "lq_candidates", "kmeans_step", "color_convert")
+STRIP_DITHER_KERNELS = ("hilbert_keys", "dither_scan", "color_convert",
+                        "segment_sum", "lq_candidates", "kmeans_step")
+OVER_BUDGET_KERNELS = ("color_convert", "segment_sum", "lq_candidates",
+                       "assign_planar", "kmeans_step")
 
 
 def _drive(torch, run, colors, path_kernels, what):
@@ -683,6 +839,17 @@ def _drive(torch, run, colors, path_kernels, what):
         launches=launches, peak_device_bytes=peak)
 
 
+def _check_footprint(stats, n, name):
+    """Peak device bytes per pixel of a resident call, held to the
+    pipeline's constant of that name (the budget's footprint model)."""
+    from patolette_tpu_torch.models import pipeline
+
+    bpp = stats["peak_device_bytes"] / n
+    limit = getattr(pipeline, name)
+    check(bpp <= limit, f"peak {bpp} B/px above {name} = {limit}")
+    return bpp
+
+
 def _check_outputs(pal, pmap, p, n):
     import numpy as np
 
@@ -718,6 +885,7 @@ def phase_e2e(torch, profile=False):
     mse, mse_cube = _mse_luv(torch, img, pal, pmap)
     check(np.isfinite(mse) and mse < 0.5 * mse_cube,
           f"CIELuv MSE {mse} against {mse_cube} for the 216-colour cube")
+    bpp = _check_footprint(stats, w * h, "BYTES_PER_PIXEL")
 
     # the same pixels as uint8 take the sampled LUT route (K5, no K3); as
     # float32 they take the resident route with the same LQ sample
@@ -743,6 +911,7 @@ def phase_e2e(torch, profile=False):
 
     emit({"phase": "e2e", "shape": [w, h], "palette": p, "kmeans_niter": 32,
           **stats, "mp_per_s": w * h / 1e6 / stats["best_s"],
+          "peak_device_bytes_per_pixel": bpp,
           "cieluv_mse": mse, "cieluv_mse_cube216": mse_cube,
           "palette_used": used, "bit_identical_runs": True})
     emit({"phase": "e2e-u8-lut", "shape": [w, h], "palette": p,
@@ -751,7 +920,8 @@ def phase_e2e(torch, profile=False):
           "cieluv_mse": mse8, "cieluv_mse_cube216": cube8,
           "cieluv_mse_same_pixels_float32": mse8f,
           "bit_identical_runs": True})
-    return stats["launches"], stats8["launches"], stats8["peak_device_bytes"]
+    return (stats["launches"], stats8["launches"],
+            stats8["peak_device_bytes"], mse)
 
 
 def phase_e2e_headline(torch, peak_4k):
@@ -878,7 +1048,8 @@ def phase_routes(torch, img_100mp):
             "sampled_lut": lambda: TP._quantize_via_samples(
                 img, 256, timer=TP._StageTimer(False, False, dev), **kw),
             "resident_direct": lambda: TP._quantize_resident(
-                img, w, h, 256, dither=False, dither_segment=4096,
+                img, 256, width=w, height=h, dither=False,
+                dither_segment=4096,
                 tile_size=0.0, timer=TP._StageTimer(False, False, dev),
                 **kw),
         }
@@ -1001,18 +1172,9 @@ def phase_e2e_default(torch, profile=False):
     pal, pmap, stats = _drive(torch, run, img, DEFAULT_PATH_KERNELS,
                               "the default call")
     used = _check_outputs(pal, pmap, p, w * h)
-    mse, mse_cube = _mse_luv(torch, img, pal, pmap)
-    mse_cube_dith = _cube_dithered_mse(torch, img, w, h)
-    check(np.isfinite(mse) and mse < 0.5 * mse_cube_dith,
-          f"dithered CIELuv MSE {mse} against {mse_cube_dith} for the "
-          "dithered cube")
-    direct = _direct_map(torch, img, pal)
-    mse_direct = _mse_luv(torch, img, pal, direct)[0]
-    block = _block_mse_luv(torch, img, pal, pmap, w, h)
-    block_direct = _block_mse_luv(torch, img, pal, direct, w, h)
-    check(block <= block_direct,
-          f"8x8 block-mean CIELuv error {block} of the dither against "
-          f"{block_direct} for the undithered map")
+    bpp = _check_footprint(stats, w * h, "BYTES_PER_PIXEL_SALIENCY_OR_DITHER")
+    mse_cube = _mse_luv(torch, img, pal, pmap)[1]
+    quality = _dither_quality(torch, img, pal, pmap, w, h, "default call")
 
     img_u8 = np.round(img * 255.0).astype(np.uint8)
     kernels.reset_launches()
@@ -1026,15 +1188,8 @@ def phase_e2e_default(torch, profile=False):
     check(np.array_equal(pal8, pal8b) and np.array_equal(pmap8, pmap8b),
           "two uint8 default calls differ")
     x8 = img_u8.astype(np.float32) / 255.0
-    mse8 = _mse_luv(torch, x8, pal8, pmap8)[0]
-    cube8 = _cube_dithered_mse(torch, x8, w, h)
-    check(np.isfinite(mse8) and mse8 < 0.5 * cube8,
-          f"uint8 dithered CIELuv MSE {mse8} against {cube8}")
-    block8 = _block_mse_luv(torch, x8, pal8, pmap8, w, h)
-    block8_direct = _block_mse_luv(torch, x8, pal8,
-                                   _direct_map(torch, x8, pal8), w, h)
-    check(block8 <= block8_direct,
-          f"uint8 8x8 block-mean error {block8} against {block8_direct}")
+    quality8 = _dither_quality(torch, x8, pal8, pmap8, w, h,
+                               "uint8 default call")
 
     if profile:
         _profile_call(torch, lambda: run(img), "default")
@@ -1042,17 +1197,194 @@ def phase_e2e_default(torch, profile=False):
     emit({"phase": "e2e-default", "shape": [w, h], "palette": p,
           "kmeans_niter": 32, "dither_segment": 4096, "tile_size": 512.0,
           **stats, "mp_per_s": w * h / 1e6 / stats["best_s"],
-          "peak_device_bytes_per_pixel": stats["peak_device_bytes"] / (w * h),
-          "cieluv_mse": mse, "cieluv_mse_cube216": mse_cube,
-          "cieluv_mse_cube216_dithered": mse_cube_dith,
-          "cieluv_mse_undithered": mse_direct,
-          "block8_cieluv_mse": block, "block8_cieluv_mse_undithered":
-          block_direct, "palette_used": used, "uint8_wall_s": u8_s,
-          "uint8_launches": launches8, "uint8_cieluv_mse": mse8,
-          "uint8_cieluv_mse_cube216_dithered": cube8,
-          "uint8_block8_cieluv_mse": block8,
-          "uint8_block8_cieluv_mse_undithered": block8_direct,
+          "peak_device_bytes_per_pixel": bpp,
+          "cieluv_mse_cube216": mse_cube, **quality, "palette_used": used,
+          "uint8_wall_s": u8_s, "uint8_launches": launches8,
+          **{"uint8_" + k: v for k, v in quality8.items()},
           "bit_identical_runs": True})
+    return stats["launches"]
+
+
+def _dither_quality(torch, colors, pal, pmap, w, h, what):
+    """The checks of a dithered map: its per-pixel CIELuv MSE under half
+    the 216-colour cube's dithered the same way, and its 8x8 block means
+    no worse than the undithered map's with the same palette."""
+    import numpy as np
+
+    mse = _mse_luv(torch, colors, pal, pmap)[0]
+    cube = _cube_dithered_mse(torch, colors, w, h)
+    check(np.isfinite(mse) and mse < 0.5 * cube,
+          f"{what}: dithered CIELuv MSE {mse} against {cube} for the "
+          "dithered cube")
+    direct = _direct_map(torch, colors, pal)
+    block = _block_mse_luv(torch, colors, pal, pmap, w, h)
+    block_direct = _block_mse_luv(torch, colors, pal, direct, w, h)
+    check(block <= block_direct,
+          f"{what}: 8x8 block-mean CIELuv error {block} of the dither "
+          f"against {block_direct} for the undithered map")
+    return {"cieluv_mse": mse, "cieluv_mse_cube216_dithered": cube,
+            "cieluv_mse_undithered": _mse_luv(torch, colors, pal, direct)[0],
+            "block8_cieluv_mse": block,
+            "block8_cieluv_mse_undithered": block_direct}
+
+
+def _strip_count(w, h):
+    from patolette_tpu_torch.models import pipeline
+
+    rows = max(1, pipeline._stream_strip_pixels(w * h) // w)
+    return -(-h // rows), rows
+
+
+def _check_streamed(stats, what, absent):
+    """The call took the streamed route and launched none of ``absent``."""
+    check("strip-in" in stats["stage_ms"], f"{what} missed the streamed "
+          "route")
+    for name in absent:
+        check(stats["launches"][name] == 0, f"{name} launched on {what}")
+
+
+def phase_e2e_strip_dither(torch, profile=False):
+    """A dithered call without saliency above 4 MP streams per row strip:
+    the 4K float32 image, 256 colours, 32 iterations, on 2 strips through
+    the planar feed (each strip its own curve, a fresh queue at the
+    seam)."""
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch.ops import lut
+
+    w, h, p = W, H, 256
+    img = synth_image_f32(w, h)
+    lut.clear_grid_cache()  # the LUT route's grid is not this call's
+
+    def run(colors, **extra):
+        ok, pal, pmap, msg = pt.quantize(w, h, colors, p, dither=True,
+                                         tile_size=0, kmeans_niter=32,
+                                         **extra)
+        check(ok, f"strip dither quantize failed: {msg}")
+        return pal, pmap
+
+    pal, pmap, stats = _drive(torch, run, img, STRIP_DITHER_KERNELS,
+                              "the strip dither")
+    strips, rows = _strip_count(w, h)
+    _check_streamed(stats, "the strip dither", ("assign_planar", "mbd"))
+    check(strips == 2, f"{strips} strips at 4K")
+    used = _check_outputs(pal, pmap, p, w * h)
+    quality = _dither_quality(torch, img, pal, pmap, w, h, "strip dither")
+    if profile:
+        _profile_call(torch, lambda: run(img), "strip_dither")
+    emit({"phase": "e2e-strip-dither", "shape": [w, h], "palette": p,
+          "kmeans_niter": 32, "strips": strips, "strip_rows": rows, **stats,
+          "mp_per_s": w * h / 1e6 / stats["best_s"],
+          "peak_device_bytes_per_pixel": stats["peak_device_bytes"] / (w * h),
+          **quality, "palette_used": used, "bit_identical_runs": True})
+    return stats["launches"]
+
+
+def phase_e2e_strip_headline(torch, img_100mp):
+    """bench.py's 100 MP uint8 image dithered without saliency: the packed
+    uint8 feed on 6 strips of 1677 rows; then a 7680x4320 uint8 image, 2
+    strips of about the same size. With one strip on the device at a time,
+    the 100 MP call's peak device memory stays within 10% of the 33 MP
+    call's."""
+    import numpy as np
+
+    import patolette_tpu_torch as pt
+
+    p, iters = 256, 25
+    out = {}
+    for w, h, img in ((HEADLINE_W, HEADLINE_H, img_100mp),
+                      (STRIP_33MP_W, STRIP_33MP_H, None)):
+        if img is None:
+            img = synth_image_u8(w, h)
+
+        def run(colors, **extra):
+            ok, pal, pmap, msg = pt.quantize(w, h, colors, p, dither=True,
+                                             tile_size=0, kmeans_niter=iters,
+                                             **extra)
+            check(ok, f"{w}x{h} strip dither failed: {msg}")
+            return pal, pmap
+
+        what = f"the {w}x{h} uint8 strip dither"
+        pal, pmap, stats = _drive(torch, run, img, STRIP_DITHER_KERNELS,
+                                  what)
+        strips, rows = _strip_count(w, h)
+        _check_streamed(stats, what, ("assign_planar", "mbd"))
+        _check_outputs(pal, pmap, p, w * h)
+        check(np.isfinite(pal).all(), f"{what}: palette not finite")
+        out[(w, h)] = dict(shape=[w, h], strips=strips, strip_rows=rows,
+                           mp_per_s=w * h / 1e6 / stats["best_s"], **stats)
+        del img
+    big = out[(HEADLINE_W, HEADLINE_H)]
+    small = out[(STRIP_33MP_W, STRIP_33MP_H)]
+    check(big["strips"] == 6 and small["strips"] == 2, "strip counts")
+    ratio = big["peak_device_bytes"] / small["peak_device_bytes"]
+    check(ratio <= 1.1, f"100 MP peak device memory {ratio}x the 33 MP "
+          "call's")
+    emit({"phase": "e2e-strip-headline", "palette": p, "kmeans_niter": iters,
+          **big, "peak_ratio_to_33mp": ratio, "at_33mp": small,
+          "bit_identical_runs": True})
+    return big["launches"]
+
+
+def phase_e2e_over_budget(torch, mse_resident):
+    """The 4K float32 undithered call pushed onto the streamed route by a
+    device budget lowered for this call alone: its map equals K3's
+    whole-image map against the same palette bit for bit (the nearest
+    entry decomposes exactly over strips), and its CIELuv MSE is within 1%
+    of the resident call's."""
+    import numpy as np
+
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch.kernels.colorspace import color_convert
+    from patolette_tpu_torch.models import pipeline
+    from patolette_tpu_torch.ops import colorspace as cs
+    from patolette_tpu_torch.ops.assign import assign_planar
+
+    w, h, p = W, H, 256
+    img = synth_image_f32(w, h)
+    kw = dict(dither=False, tile_size=0, kmeans_niter=32,
+              color_space=pt.ColorSpace_ICtCp)
+
+    def run(colors, **extra):
+        ok, pal, pmap, msg = pt.quantize(w, h, colors, p, **kw, **extra)
+        check(ok, f"over-budget quantize failed: {msg}")
+        return pal, pmap
+
+    saved = pipeline.DEVICE_BUDGET_FRACTION
+    pipeline.DEVICE_BUDGET_FRACTION = 1e-4  # ~8 MB: far under this call
+    try:
+        pal, pmap, stats = _drive(torch, run, img, OVER_BUDGET_KERNELS,
+                                  "the over-budget call")
+    finally:
+        pipeline.DEVICE_BUDGET_FRACTION = saved
+    strips, rows = _strip_count(w, h)
+    _check_streamed(stats, "the over-budget call",
+                    ("hilbert_keys", "dither_scan", "mbd"))
+    _check_outputs(pal, pmap, p, w * h)
+
+    # the streamed route's palette, then K3 over the whole image
+    dev = torch.device(DEV, torch.cuda.current_device())
+    centers, valid = pipeline._sample_palette(
+        img, p, csp=2, kmeans_niter=32, kmeans_max_samples=512 ** 2,
+        verbose=False, weights=None, lq_max_samples=1 << 18,
+        lq_batch_splits=8, seed=1234, device=dev,
+        timer=pipeline._StageTimer(False, False, dev))
+    check(np.array_equal(pipeline._finish_palette(centers, valid, p, 2),
+                         pal), "the over-budget call's palette differs")
+    xw = color_convert(pipeline._put(img, dev), 2, "working")
+    whole = assign_planar(cs.working_to_ictcp(xw, 2),
+                          cs.working_to_ictcp(centers, 2),
+                          valid).cpu().numpy()
+    mismatches = int((whole != pmap).sum())
+    check(mismatches == 0, f"streamed map differs from K3's whole-image map "
+          f"on {mismatches} pixels")
+    mse = _mse_luv(torch, img, pal, pmap)[0]
+    check(abs(mse / mse_resident - 1.0) <= 0.01,
+          f"over-budget CIELuv MSE {mse} against {mse_resident} resident")
+    emit({"phase": "e2e-over-budget", "shape": [w, h], "palette": p,
+          "kmeans_niter": 32, "strips": strips, "strip_rows": rows, **stats,
+          "mp_per_s": w * h / 1e6 / stats["best_s"],
+          "whole_image_k3_mismatches": mismatches, "cieluv_mse": mse,
+          "cieluv_mse_resident": mse_resident, "bit_identical_runs": True})
     return stats["launches"]
 
 
@@ -1109,11 +1441,15 @@ SOURCES = {
                     "patolette_tpu/models/dither.py:144", "default"),
     "mbd": ("patolette_tpu_torch/csrc/mbd.cu",
             "patolette_tpu/models/saliency.py:62", "default"),
+    "color_convert": ("patolette_tpu_torch/csrc/colorspace.cu",
+                      "patolette_tpu/ops/colorspace.py:353", "main"),
 }
 
 
 # kernel rows of another instantiation, counted on the path that runs it
-ROW_PATHS = {"lut_argmin[1024]": "u16-lut"}
+ROW_PATHS = {"lut_argmin[1024]": "u16-lut",
+             **{row[0]: row[4] for row in K10_ROWS}}
+ROW_REPLACES = {row[0]: row[5] for row in K10_ROWS}
 
 
 def main():
@@ -1137,10 +1473,14 @@ def main():
     phase_build()
     rows = phase_kernels(torch)
     profile = "--profile" in sys.argv[1:]
-    main_launches, u8_launches, peak_u8 = phase_e2e(torch, profile=profile)
+    main_launches, u8_launches, peak_u8, mse_resident = phase_e2e(
+        torch, profile=profile)
     launches = {"main": main_launches, "u8-lut": u8_launches,
                 "default": phase_e2e_default(torch, profile=profile)}
     img_100mp, launches["u16-lut"] = phase_e2e_headline(torch, peak_u8)
+    launches["strip-dither"] = phase_e2e_strip_dither(torch, profile=profile)
+    launches["strip-u8"] = phase_e2e_strip_headline(torch, img_100mp)
+    launches["over-budget"] = phase_e2e_over_budget(torch, mse_resident)
     phase_golden(torch)
     if "--routes" in sys.argv[1:]:
         phase_routes(torch, img_100mp)
@@ -1153,7 +1493,8 @@ def main():
         path = ROW_PATHS.get(r["name"], path)
         line.append({
             "name": r["name"], "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[path][key],
+            "replaces": ROW_REPLACES.get(r["name"], replaces),
+            "launches": launches[path][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -2,7 +2,7 @@
 
 One module per kernel: ``segment`` (K1), ``lq`` (K2), ``assign`` (K3),
 ``kmeans`` (K4), ``lut`` (K5), ``hilbert`` (K7), ``dither`` (K8), ``mbd``
-(K9). Each wrapper takes the twin for tensors on the CPU and launches its
+(K9), ``colorspace`` (K10). Each wrapper takes the twin for tensors on the CPU and launches its
 kernel (or raises) for tensors on the card; ``LAUNCHES`` counts the wrapper
 calls that launched, so a run can show that its path went through them.
 """
@@ -16,6 +16,7 @@ LAUNCHES = {
     "hilbert_keys": 0,
     "dither_scan": 0,
     "mbd": 0,
+    "color_convert": 0,
 }
 
 

@@ -30,7 +30,7 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "kernels"
 SOURCES = ("segment_sum.cu", "lq_candidates.cu", "assign.cu", "kmeans.cu",
-           "hilbert.cu", "dither.cu", "mbd.cu", "lut.cu")
+           "hilbert.cu", "dither.cu", "mbd.cu", "lut.cu", "colorspace.cu")
 HEADERS = ("common.cuh", "nearest.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +52,7 @@ SIGNATURES = {
     "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "pt_mbd": (_P, _P, _P, _P, _I, _I, _P),
     "pt_lut_argmin": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
+    "pt_color_convert": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
 }
 
 HOST_SOURCE = "lut_map.cpp"

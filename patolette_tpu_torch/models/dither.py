@@ -8,16 +8,34 @@ in luma-weighted space (channel scales sqrt of the Rec2020 Y
 coefficients). The curve is cut into lanes of ``segment`` pixels whose
 queues start at zero (``segment=0``: one serial chain).
 
-The curve order comes from K7 (``ops/hilbert.py``) and the scan is K8
+Two feeds, as in the JAX package: the planar one converts working-space
+channels to linear Rec2020; the packed uint8 one (the streamed route's
+uint8 strips) converts the bytes directly from sRGB. Both conversions are
+K10 (``kernels/colorspace.py``); :func:`riemersma_dither_rec2020` takes
+channels already in linear Rec2020 (the streamed route's float strips,
+converted from sRGB through the working space in one K10 pass). The curve
+order comes from K7 (``ops/hilbert.py``) and the scan is K8
 (``kernels/dither.py``), which reads pixels through the permutation and
 writes each index to its pixel directly.
 """
 
 from __future__ import annotations
 
+from patolette_tpu_torch.kernels.colorspace import color_convert
 from patolette_tpu_torch.kernels.dither import dither_scan, palette_table
 from patolette_tpu_torch.ops import colorspace as cs
 from patolette_tpu_torch.ops import hilbert
+
+
+def riemersma_dither_rec2020(ch2020, palette_working, valid, width, height,
+                             color_space, segment=4096):
+    """Palette map (N,) int32 of the linear Rec2020 channels ``ch2020``
+    (3-tuple of (N,)) against ``palette_working`` (K, 3) in the working
+    space, with ``valid`` (K,) bool."""
+    p2020 = cs.working_to_linear_rec2020(palette_working, color_space)
+    perm = hilbert.pixel_visit_order(width, height, ch2020[0].device)
+    return dither_scan(tuple(ch.contiguous() for ch in ch2020), perm,
+                       palette_table(p2020, valid), int(segment))
 
 
 def riemersma_dither_planar(channels_working, palette_working, valid,
@@ -27,7 +45,20 @@ def riemersma_dither_planar(channels_working, palette_working, valid,
     (K, 3) with ``valid`` (K,) bool."""
     ch2020 = cs.working_to_linear_rec2020(tuple(channels_working),
                                           color_space)
-    p2020 = cs.working_to_linear_rec2020(palette_working, color_space)
-    perm = hilbert.pixel_visit_order(width, height, ch2020[0].device)
-    return dither_scan(tuple(ch.contiguous() for ch in ch2020), perm,
-                       palette_table(p2020, valid), int(segment))
+    return riemersma_dither_rec2020(ch2020, palette_working, valid, width,
+                                    height, color_space, segment)
+
+
+def riemersma_dither_packed_u8(pixels_u8, palette_working, valid, width,
+                               height, color_space, segment=4096):
+    """Palette map (N,) int32 of the (N, 3) uint8 sRGB image ``pixels_u8``
+    (the JAX package's ``riemersma_dither_packed_u8``, dither.py:220-263).
+
+    The bytes go to linear Rec2020 directly (sRGB -> XYZ -> Rec2020), not
+    through the working space: the JAX feed's chain (dither.py:228-233),
+    which differs from the planar feed's only in f32 rounding. Its single
+    packed gather into curve order, a TPU gather-cost workaround, has no
+    counterpart: K8 reads pixels through the permutation."""
+    ch2020 = color_convert(pixels_u8, 0, "rec2020_direct")
+    return riemersma_dither_rec2020(ch2020, palette_working, valid, width,
+                                    height, color_space, segment)

@@ -1,6 +1,6 @@
 """Quantization pipeline: the public ``quantize`` API of the port.
 
-Two routes, chosen as the JAX package's ``_quantize_body`` chooses them:
+Three routes, chosen as the JAX package's ``_quantize_body`` chooses them:
 
 * **Sampled** (``_quantize_via_samples``, the JAX staged variant): uint8
   undithered images without saliency of at least 4 MP, and every
@@ -11,34 +11,45 @@ Two routes, chosen as the JAX package's ``_quantize_body`` chooses them:
   over the ICtCp grid, pulled raw and resolved on the host
   (``ops/lut.py``). Nothing of size N is on the device, so the device
   budget does not bound these calls.
+* **Streamed** (``_quantize_streamed``, the JAX package's): the palette
+  from the same samples, then the map per row strip with one strip on the
+  device at a time: upload, K10, then K3 (undithered) or K7 + K8 (dither,
+  each strip with its own curve and a fresh error queue at its seam).
+  Dithered calls without saliency above 4 MP take it, and so does any
+  call without saliency whose resident footprint exceeds the device
+  budget or that runs out of device memory on the resident route.
 * **Resident** (``_quantize_resident``, modelled on
   ``_quantize_full_upload``): sRGB -> weights (explicit, else MBD saliency
   with K9 when ``tile_size > 0``) -> working space -> LQ sample draw -> GQ
   -> LQ -> centres (K1) -> KMeans (K4) -> Riemersma dither (K7 curve
   order, K8 scan) or the ICtCp direct map (K3) -> sRGB palette with
-  [-1, -1, -1] fill. The image stays on the device as three planar f32
-  channels. The JAX package maps uint8 undithered images of at least 4 MP
-  on this route through its 24-bit table, to spare the index download over
-  its host link; the table equals the direct map, so the port keeps K3.
+  [-1, -1, -1] fill. The image goes up as it is (uint8 as bytes) and K10
+  turns it into three planar f32 channels of the working space, which
+  stay on the device. The JAX package maps uint8 undithered images of at
+  least 4 MP on this route through its 24-bit table, to spare the index
+  download over its host link; the table equals the direct map, so the
+  port keeps K3.
 
 Every sample draw is on the host from ``np.random.default_rng(seed)``. The
 resident route's LQ draw is the JAX package's exact draw; its KMeans draw
 follows from the same ``rng`` where the JAX package draws with
 ``jax.random`` (README divergence T1).
 
-Not in this slice (each returns a typed failure that names it): ``mesh=``
-and resident images beyond the device budget. Above 4 MP without saliency
-the JAX package dithers per row strip; this route dithers the whole image
-along one curve (README divergence T2).
+Not in this slice (a typed failure that names it): ``mesh=``. Over the
+device budget, calls with saliency or with ``lq_max_samples=0`` fail
+typed, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import time
+import traceback
 
 import numpy as np
 import torch
 
+from patolette_tpu_torch.kernels.colorspace import color_convert
 from patolette_tpu_torch.models import dither as DITH
 from patolette_tpu_torch.models import global_q as GQ
 from patolette_tpu_torch.models import kmeans as KM
@@ -56,14 +67,15 @@ from patolette_tpu_torch.utils.config import ColorSpace, QuantizeOptions
 # Per-stage wall times (ms) of the most recent quantize() call.
 LAST_STAGE_TIMES: dict[str, float] = {}
 
-# Peak device bytes per pixel of one call (torch.cuda.max_memory_allocated
-# over a 3840x2160 call on an H100, chip_smoke.py's e2e phases), rounded
-# up: 80.3 for the direct map (sRGB and working planes, the ICtCp copy, the
-# map, the colour transforms' f64 power transients); 102.1 with saliency
-# and dither (the MBD's l, u, d and the Lab and prior planes; the linear
-# Rec2020 planes, the curve keys, their sort and the permutation).
-BYTES_PER_PIXEL = 84
-BYTES_PER_PIXEL_SALIENCY_OR_DITHER = 104
+# Peak device bytes per pixel of one resident call, measured
+# (torch.cuda.max_memory_allocated over a 3840x2160 float32 call on an
+# NVIDIA H100 80GB HBM3, chip_smoke.py's e2e phases) and rounded up: 28.1
+# for the direct map (the image as uploaded, its working planes, the map)
+# and 102.4 with saliency and dither (the MBD's planes and the priors,
+# then the linear Rec2020 planes, the curve keys, their sort and the
+# permutation).
+BYTES_PER_PIXEL = 29
+BYTES_PER_PIXEL_SALIENCY_OR_DITHER = 103
 DEVICE_BUDGET_FRACTION = 0.8
 
 # The JAX package's thresholds of the sampled route (pipeline.py:210-217).
@@ -71,6 +83,23 @@ DEVICE_BUDGET_FRACTION = 0.8
 # so another threshold would give another palette, not only another speed.
 LUT_MIN_PIXELS = 1 << 22
 SAMPLE_MAX = 1 << 22
+
+# The streamed route's strips: the JAX package's sizes (pipeline.py:635-640).
+# The strip rows, each strip's own Hilbert curve and the fresh error queue
+# at each seam decide the dithered map, so another size would give another
+# map, not only another speed.
+STREAM_STRIP_MIN = 1 << 22
+STREAM_STRIP_MAX = 1 << 24
+# Dithered calls without saliency above this many pixels stream per strip
+# whatever the budget: the JAX package's ONE_SHOT_MAX_PIXELS
+# (pipeline.py:778), where its one-shot route ends and its strip dither
+# begins. The port has no one-shot route; the value keeps the JAX
+# package's maps.
+STRIP_DITHER_MIN_PIXELS = 1 << 22
+
+
+def _stream_strip_pixels(n: int) -> int:
+    return min(max(n // 2, STREAM_STRIP_MIN), STREAM_STRIP_MAX)
 
 
 def _lut_min_pixels(palette_size: int) -> int:
@@ -177,19 +206,13 @@ def _finish_palette(palette_work, valid, p, csp):
 
 
 def _put(colors, device):
-    """(N, 3) host pixels -> (N, 3) f32 sRGB in [0, 1] on the device;
-    uint8 goes up as bytes and is normalised there."""
+    """(N, 3) host pixels -> the same (N, 3) on the device, uint8 as bytes,
+    anything else as f32. K10 normalises and de-interleaves them as it
+    converts them."""
     if colors.dtype == np.uint8:
-        x = torch.from_numpy(np.ascontiguousarray(colors)).to(device)
-        return x.to(torch.float32) * np.float32(1.0 / 255.0)
+        return torch.from_numpy(np.ascontiguousarray(colors)).to(device)
     return torch.from_numpy(
         np.ascontiguousarray(colors, dtype=np.float32)).to(device)
-
-
-def _upload(colors, device):
-    """(N, 3) host image -> 3 x (N,) f32 sRGB channels on the device."""
-    x = _put(colors, device)
-    return tuple(x[:, k].contiguous() for k in range(3))
 
 
 def _put_weights(w_host, device):
@@ -285,9 +308,16 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
     dither = bool(dither) and not palette_only
     saliency = weights is None and tile_size > 0
     timer = _StageTimer(verbose, verbose or sync_stages, device)
+    csp = int(color_space)
+    kw = dict(
+        palette_only=palette_only, csp=csp, kmeans_niter=int(kmeans_niter),
+        kmeans_max_samples=int(kmeans_max_samples), verbose=verbose,
+        weights=weights, lq_max_samples=int(lq_max_samples),
+        lq_batch_splits=int(lq_batch_splits), seed=int(seed), device=device,
+        timer=timer,
+    )
 
     # --- the sampled route (pipeline.py:1003-1024 of the JAX package) ---
-    csp = int(color_space)
     lut_eligible = colors.dtype == np.uint8 and not dither and p <= 65536
     m_pal = n if not lq_max_samples else min(n, int(lq_max_samples))
     if kmeans_niter > 0:
@@ -295,33 +325,53 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
                     min(n, KM.subsample_cap(p, int(kmeans_max_samples))))
     if (not saliency and m_pal <= SAMPLE_MAX
             and (palette_only or (lut_eligible and n >= _lut_min_pixels(p)))):
-        return _quantize_via_samples(
-            colors, p, palette_only=palette_only, csp=csp,
-            kmeans_niter=int(kmeans_niter),
-            kmeans_max_samples=int(kmeans_max_samples), verbose=verbose,
-            weights=weights, lq_max_samples=int(lq_max_samples),
-            lq_batch_splits=int(lq_batch_splits), seed=int(seed),
-            device=device, timer=timer,
-        )
+        return _quantize_via_samples(colors, p, **kw)
 
+    # --- the streamed route, in the JAX package's order
+    # (pipeline.py:1042-1081): large dithered calls without saliency, then
+    # whatever exceeds the device budget ---
+    geometry = dict(width=int(width), height=int(height), dither=dither,
+                    dither_segment=int(dither_segment))
+    if dither and not saliency and n > STRIP_DITHER_MIN_PIXELS \
+            and lq_max_samples:
+        return _quantize_streamed(colors, p, **geometry, **kw)
     per_pixel = (BYTES_PER_PIXEL_SALIENCY_OR_DITHER if saliency or dither
                  else BYTES_PER_PIXEL)
     if n * per_pixel > _device_budget(device):
-        raise NotImplementedError(
-            f"{n} pixels exceed the device budget; strip streaming is not "
-            "ported yet"
-        )
-    return _quantize_resident(
-        colors, int(width), int(height), p,
-        palette_only=palette_only, dither=dither,
-        dither_segment=int(dither_segment),
-        tile_size=float(tile_size) if saliency else 0.0, csp=csp,
-        kmeans_niter=int(kmeans_niter),
-        kmeans_max_samples=int(kmeans_max_samples), verbose=verbose,
-        weights=weights, lq_max_samples=int(lq_max_samples),
-        lq_batch_splits=int(lq_batch_splits), seed=int(seed), device=device,
-        timer=timer,
-    )
+        if saliency:
+            raise RuntimeError(
+                f"{n} pixels exceed the device budget for saliency "
+                "weighting; pass tile_size=0 or explicit weights="
+            )
+        if not lq_max_samples:
+            raise RuntimeError(
+                f"{n} pixels exceed the device budget for a full-data "
+                "palette search; set lq_max_samples"
+            )
+        return _quantize_streamed(colors, p, **geometry, **kw)
+
+    # --- the resident route, with the JAX package's net for a device OOM
+    # (pipeline.py:1119-1161): the footprint above is a measurement of
+    # other calls, not of this one, so a call that still runs out of
+    # device memory retries streamed where a streamed equivalent exists ---
+    try:
+        return _quantize_resident(
+            colors, p, **geometry,
+            tile_size=float(tile_size) if saliency else 0.0, **kw)
+    except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
+        oom = (isinstance(e, torch.cuda.OutOfMemoryError)
+               or "out of memory" in str(e))
+        if not (oom and not saliency and lq_max_samples):
+            raise
+        # the traceback's frames hold the failed call's device tensors;
+        # drop them before the retry needs the memory
+        traceback.clear_frames(e.__traceback__)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    _log(verbose, "Device out of memory on the resident route; retrying "
+                  "streamed")
+    return _quantize_streamed(colors, p, **geometry, **kw)
 
 
 def _draw_palette_samples(colors, n, w_host, rng, p, lq_max_samples,
@@ -357,20 +407,12 @@ def _draw_palette_samples(colors, n, w_host, rng, p, lq_max_samples,
             _put_weights(w_km_h, device))
 
 
-def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
-                          kmeans_max_samples, verbose, weights,
-                          lq_max_samples, lq_batch_splits, seed, device,
-                          timer):
-    """Sample-upload + LUT route: device work independent of N.
-
-    The palette search needs only its deterministic samples (lq_max_samples
-    for GQ/LQ; the reference's own KMeans cap, refine.c:87), so only those
-    go to the device. The palette map of a uint8 image factors through the
-    2^24 possible colours (``ops/lut.py``): K5 builds one table, it comes
-    back in one raw copy, and the host resolves every pixel. The JAX package's staged variant
-    (pipeline.py:563-614); its single-program variant is not ported
-    (README divergence T3).
-    """
+def _sample_palette(colors, p, *, csp, kmeans_niter, kmeans_max_samples,
+                    verbose, weights, lq_max_samples, lq_batch_splits, seed,
+                    device, timer):
+    """Palette search on the host-drawn samples alone: the draws of
+    :func:`_draw_palette_samples`, GQ/LQ, KMeans. Returns the (p, 3)
+    working-space centres and their (p,) valid flags on the device."""
     n = colors.shape[0]
     rng = np.random.default_rng(seed)
     w_host = (None if weights is None
@@ -397,6 +439,30 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
         centers = KM.lloyd_iterations(x_km, w_km, centers, valid,
                                       kmeans_niter)
         timer.lap("kmeans")
+    return centers, valid
+
+
+def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
+                          kmeans_max_samples, verbose, weights,
+                          lq_max_samples, lq_batch_splits, seed, device,
+                          timer):
+    """Sample-upload + LUT route: device work independent of N.
+
+    The palette search needs only its deterministic samples (lq_max_samples
+    for GQ/LQ; the reference's own KMeans cap, refine.c:87), so only those
+    go to the device. The palette map of a uint8 image factors through the
+    2^24 possible colours (``ops/lut.py``): K5 builds one table, it comes
+    back in one raw copy, and the host resolves every pixel. The JAX package's staged variant
+    (pipeline.py:563-614); its single-program variant is not ported
+    (README divergence T3).
+    """
+    centers, valid = _sample_palette(
+        colors, p, csp=csp, kmeans_niter=kmeans_niter,
+        kmeans_max_samples=kmeans_max_samples, verbose=verbose,
+        weights=weights, lq_max_samples=lq_max_samples,
+        lq_batch_splits=lq_batch_splits, seed=seed, device=device,
+        timer=timer,
+    )
 
     palette_map = None
     if not palette_only:
@@ -414,13 +480,81 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
     )
 
 
-def _quantize_resident(colors, width, height, p, *, palette_only, dither,
+def _map_strip(strip, centers, valid, width, rows, csp, dither, segment):
+    """(rows * width,) int32 palette map of one (rows * width, 3) strip on
+    the device, by the JAX streamed route's chain for its input type
+    (pipeline.py:704-752), each chain one K10 pass: a dithered uint8 strip
+    goes from sRGB straight to linear Rec2020 (the packed feed), a
+    dithered float strip sRGB -> working -> linear Rec2020 (the planar
+    feed), the undithered map sRGB -> working -> ICtCp, then K3."""
+    if dither and strip.dtype == torch.uint8:
+        return DITH.riemersma_dither_packed_u8(
+            strip, centers, valid, width, rows, csp, segment=segment)
+    if dither:
+        return DITH.riemersma_dither_rec2020(
+            color_convert(strip, csp, "rec2020"), centers, valid, width,
+            rows, csp, segment=segment)
+    return assign_planar(color_convert(strip, csp, "ictcp"),
+                         cs.working_to_ictcp(centers, csp), valid)
+
+
+def _quantize_streamed(colors, p, *, width, height, dither, dither_segment,
+                       palette_only, csp, kmeans_niter, kmeans_max_samples,
+                       verbose, weights, lq_max_samples, lq_batch_splits,
+                       seed, device, timer):
+    """The palette from samples, then the map per row strip with one strip
+    on the device at a time (the JAX package's ``_quantize_streamed``,
+    pipeline.py:657-766). Each strip of ``_stream_strip_pixels(n) //
+    width`` rows goes up as it is, is mapped, and its map comes back into
+    the host array before the next one goes up, so device memory does not
+    grow with N. Seams: the undithered map is per pixel and exact; the
+    dither runs each strip along its own curve with a fresh error queue.
+
+    The palette is the staged one of the sampled route (host f64 GQ DP);
+    the JAX package's streamed route runs its f32 device DP (README
+    divergence T3).
+    """
+    n = width * height
+    _log(verbose, f"Streamed route: {n / 1e6:.1f} MP")
+    centers, valid = _sample_palette(
+        colors, p, csp=csp, kmeans_niter=kmeans_niter,
+        kmeans_max_samples=kmeans_max_samples, verbose=verbose,
+        weights=weights, lq_max_samples=lq_max_samples,
+        lq_batch_splits=lq_batch_splits, seed=seed, device=device,
+        timer=timer,
+    )
+
+    palette_map = None
+    if not palette_only:
+        palette_map = np.empty((n,), np.int32)
+        rows = max(1, _stream_strip_pixels(n) // max(1, width))
+        mode = "dither" if dither else "nn-map"
+        _log(verbose, f"Streamed {mode}: strips of {rows} rows")
+        for r0 in range(0, height, rows):
+            r1 = min(height, r0 + rows)
+            strip = _put(colors[r0 * width:r1 * width], device)
+            timer.lap("strip-in")
+            pm = _map_strip(strip, centers, valid, width, r1 - r0, csp,
+                            dither, dither_segment)
+            del strip
+            torch.from_numpy(palette_map[r0 * width:r1 * width]).copy_(pm)
+            del pm
+            timer.lap(mode)
+
+    palette = _finish_palette(centers, valid, p, csp)
+    timer.lap("palette-out")
+    return True, palette, palette_map, errors.exit_code_message(
+        errors.ExitCode.SUCCESS
+    )
+
+
+def _quantize_resident(colors, p, *, width, height, palette_only, dither,
                        dither_segment, tile_size, csp, kmeans_niter,
                        kmeans_max_samples, verbose, weights, lq_max_samples,
                        lq_batch_splits, seed, device, timer):
     """The resident route: planar image on the device end to end."""
     n = width * height
-    xp_srgb = _upload(colors, device)
+    x = _put(colors, device)
     # weights: explicit > saliency (tile_size > 0 only without them) > none
     w_full = None
     if weights is not None:
@@ -429,11 +563,15 @@ def _quantize_resident(colors, width, height, p, *, palette_only, dither,
 
     if tile_size > 0:
         _log(verbose, "Generating saliency map")
+        xp_srgb = color_convert(x, 0, "working")
+        del x
         w_full = SAL.get_weights_planar(xp_srgb, height, width, tile_size)
         timer.lap("saliency")
-
-    xp_work = cs.srgb_to_working(xp_srgb, csp)
-    del xp_srgb
+        xp_work = cs.srgb_to_working(xp_srgb, csp)
+        del xp_srgb
+    else:
+        xp_work = color_convert(x, csp, "working")
+        del x
     _log(verbose, "Palette generation")
 
     rng = np.random.default_rng(seed)

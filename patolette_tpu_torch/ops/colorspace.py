@@ -17,6 +17,14 @@ goes through a (possibly TF32) matrix unit. Without this, a 1-ulp
 difference before the PQ curve (exponent 78.84) grows ~80x and moves
 KMeans decisions.
 
+The composites the pipeline converts images with (``srgb_to_working``,
+``working_to_ictcp``, ``working_to_linear_rec2020``,
+``srgb_to_linear_rec2020``, ``srgb_to_lab``) go through K10
+(``kernels/colorspace.py``): one kernel pass on the card, these functions'
+``*_plain`` glue on the CPU. They also take an ``(N, 3)`` uint8 tensor,
+normalised as the upload normalises it. The other conversions (the
+palette's way back to sRGB, the pairwise steps) stay glue.
+
 Conventions (identical to the reference and the JAX package):
   * sRGB values are gamma-encoded in [0, 1]; gamma decode/encode clamp to
     [0, 1] (reference sRGB.c:70-110).
@@ -328,10 +336,11 @@ def ictcp_to_linear_rec2020(ictcp):
 
 
 # --------------------------------------------------------------------------
-# Composites used by the pipeline
+# Composites used by the pipeline: the glue (K10's plain version) and the
+# routed public functions
 # --------------------------------------------------------------------------
 
-def srgb_to_linear_rec2020(rgb):
+def srgb_to_linear_rec2020_plain(rgb):
     return xyz_to_linear_rec2020(srgb_to_xyz(rgb))
 
 
@@ -348,10 +357,10 @@ def cieluv_to_linear_rec2020(luv):
 
 
 def srgb_to_ictcp(rgb):
-    return linear_rec2020_to_ictcp(srgb_to_linear_rec2020(rgb))
+    return linear_rec2020_to_ictcp(srgb_to_linear_rec2020_plain(rgb))
 
 
-def srgb_to_lab(rgb):
+def srgb_to_lab_plain(rgb):
     """sRGB -> CIELAB (D65) for the saliency border prior (the reference
     calls skimage.color.rgb2lab, patolette.pyx:213). The cube root is
     ``pow(t, fl32(1/3))`` rounded once, as the JAX package's compiled
@@ -371,7 +380,7 @@ def srgb_to_lab(rgb):
     return _join(rgb, l, a, b)
 
 
-def srgb_to_working(rgb, color_space):
+def srgb_to_working_plain(rgb, color_space):
     """sRGB -> working space (reference patolette.c:201-207)."""
     cs = int(color_space)
     if cs == 1:  # CIELuv
@@ -381,7 +390,7 @@ def srgb_to_working(rgb, color_space):
     return rgb
 
 
-def working_to_ictcp(x, color_space):
+def working_to_ictcp_plain(x, color_space):
     """Working space -> ICtCp for the direct map. The CIELuv path follows
     the reference's chain Luv -> Rec2020 -> sRGB -> ICtCp
     (patolette.c:304-313)."""
@@ -395,7 +404,7 @@ def working_to_ictcp(x, color_space):
     return srgb_to_ictcp(x)
 
 
-def working_to_linear_rec2020(x, color_space):
+def working_to_linear_rec2020_plain(x, color_space):
     """Working space -> linear Rec2020 for dithering
     (reference patolette.c:274-287)."""
     cs = int(color_space)
@@ -403,7 +412,7 @@ def working_to_linear_rec2020(x, color_space):
         return cieluv_to_linear_rec2020(x)
     if cs == 2:
         return ictcp_to_linear_rec2020(x)
-    return srgb_to_linear_rec2020(x)
+    return srgb_to_linear_rec2020_plain(x)
 
 
 def working_to_srgb(x, color_space):
@@ -414,3 +423,54 @@ def working_to_srgb(x, color_space):
     if cs == 2:
         return linear_rec2020_to_srgb(ictcp_to_linear_rec2020(x))
     return x
+
+
+def _convert(x, color_space, target):
+    """``target`` of K10's wrapper in the form ``x`` came in: planar in,
+    planar out (each plane of the input's shape); (..., 3) in, (..., 3)
+    out."""
+    # K10's plain version is this module's glue, so the wrapper's module
+    # imports this one and is imported here at the call
+    from patolette_tpu_torch.kernels.colorspace import color_convert
+
+    if _is_planar(x):
+        shape = x[0].shape
+        out = color_convert(tuple(ch.reshape(-1).contiguous() for ch in x),
+                            color_space, target)
+        return tuple(o.view(shape) for o in out)
+    out = color_convert(x.reshape(-1, 3).contiguous(), color_space, target)
+    return torch.stack(out, -1).view(*x.shape[:-1], 3)
+
+
+def _is_f32(x):
+    return (x[0] if _is_planar(x) else x).dtype == torch.float32
+
+
+def srgb_to_working(rgb, color_space):
+    """sRGB (f32, or (N, 3) uint8) -> working space, through K10."""
+    if int(color_space) == 0 and _is_f32(rgb):
+        return rgb
+    return _convert(rgb, color_space, "working")
+
+
+def working_to_ictcp(x, color_space):
+    """Working space -> ICtCp for the direct map, through K10."""
+    if int(color_space) == 2:
+        return x
+    return _convert(x, color_space, "working_to_ictcp")
+
+
+def working_to_linear_rec2020(x, color_space):
+    """Working space -> linear Rec2020 for dithering, through K10."""
+    return _convert(x, color_space, "working_to_rec2020")
+
+
+def srgb_to_linear_rec2020(rgb):
+    """sRGB -> linear Rec2020 directly (the packed uint8 dither feed's
+    chain), through K10."""
+    return _convert(rgb, 0, "rec2020_direct")
+
+
+def srgb_to_lab(rgb):
+    """sRGB -> CIELAB for the saliency border prior, through K10."""
+    return _convert(rgb, 0, "lab")

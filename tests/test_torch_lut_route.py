@@ -187,13 +187,16 @@ def test_route_thresholds_equal_jax(monkeypatch):
 
 def test_u8_undithered_call_needs_no_device_budget(monkeypatch):
     """Only samples, grid and table live on the device, so the device
-    budget does not bound the sampled route; a dithered call still needs
-    it."""
+    budget does not bound the sampled route; a dithered call over the
+    budget takes the streamed route instead."""
     monkeypatch.setattr(TP, "_device_budget", lambda device: 0)
     x = _random_u8()
     ok, pal, pmap, msg = _port(64, 64, x, 8, kmeans_niter=2, **ICTCP)
     assert ok, msg
     assert pmap.shape == (64 * 64,) and (pal[pmap] >= 0).all()
-    ok, _, _, msg = _port(64, 64, x, 8, kmeans_niter=2,
-                          **dict(ICTCP, dither=True))
-    assert not ok and "device budget" in msg
+    assert "lut-map-host" in TP.LAST_STAGE_TIMES
+    ok, pal, pmap, msg = _port(64, 64, x, 8, kmeans_niter=2,
+                               **dict(ICTCP, dither=True))
+    assert ok, msg
+    assert pmap.shape == (64 * 64,) and (pal[pmap] >= 0).all()
+    assert {"strip-in", "dither"} <= set(TP.LAST_STAGE_TIMES)
