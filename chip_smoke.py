@@ -12,7 +12,11 @@ Phases, each printing one JSON line:
      computes the same function, and the least time the card could take;
      K5's u8 and u16 tables must also equal K3's map of all 2^24 codes;
      K10 must equal its plain version bit for bit in every target, input
-     kind and working space, and on all 2^24 codes;
+     kind and working space, and on all 2^24 codes; K6 on a palette's
+     2^24 table and on its second quarter must equal its plain version in
+     header and words and decode back to the table, and must flag an
+     alternating table; K4 with a reduction between its two halves must
+     match its plain version as without one;
   4. e2e: quantize() of a 4K float32 image to 256 colours with 32 KMeans
      iterations and no dither or saliency (K1-K4 and K10 must launch, two
      runs must agree bit for bit, peak device bytes per pixel at or below
@@ -43,12 +47,27 @@ Phases, each printing one JSON line:
      call's); e2e-over-budget, the 4K undithered call under a lowered
      device budget (its map equal to K3's whole-image map against the
      same palette, its CIELuv MSE within 1% of the resident call's);
-  8. golden: the 96x64 inputs against tests/golden/quantize_golden.npz.
+  8. the multi-device route, quantize(mesh=): e2e-mesh-u8, -f32, -default
+     and -headline with one rank (a world-1 NCCL group in this process on
+     cuda:0): the 4K uint8 call on the sharded table (K10, K5, K6 must
+     launch, K3 must not; the assembled table equal to the single-device
+     K5 table for its palette, the map equal to the host map through it),
+     the 4K float32 and default calls, the 100 MP uint8 image; each with
+     the launch, rerun and lap checks and its CIELuv MSE within
+     MESH_MSE_RATIO of the single-device route's; then e2e-mesh-4: four
+     processes (this script with --mesh-worker) sharing cuda:0 over gloo,
+     the 4K uint8 and default calls: every rank's palette, map and table
+     identical, K6 launched on every rank, the table equal to the
+     single-device K5 table, the uint8 MSE within MESH_MSE_RATIO of world
+     1's, the default call's dither checks and its MSE within
+     MESH4_DEFAULT_RATIO of world 1's at each seed of MESH4_SEEDS (the
+     call without saliency is reported beside them);
+  9. golden: the 96x64 inputs against tests/golden/quantize_golden.npz.
 With ``--routes`` (a measurement, not a check) it then times the sampled
 LUT route against the resident route (direct map) at 4, 8.3 and 33 MP
 uint8, and the host map against plain torch CPU ops and a gather on the
 card at 100 MP.
-With ``--profile`` the e2e phases also trace one call each with
+With ``--profile`` the e2e phases (and e2e-mesh-u8) also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
 DIR`` the ptxas report and the profiler tables are written to DIR. Then
 the nvidia-smi line, the kernels line and, last, the ok line. Any failed
@@ -336,6 +355,18 @@ def kernel_k4(torch, rows):
     err_iters = float((ck - ct).abs().max())
     check(err_iters <= 1e-3, f"K4 centres deviate {err_iters} after {iters}")
     check(torch.equal(ck, ck2), "K4 not deterministic")
+    # with a reduction between the moments and the update, as the
+    # multi-device route runs it: against the plain step with the same one
+    def double(mom):  # two ranks' equal sums
+        return mom * 2.0
+
+    c_red = kmeans_step(x, None, c0, valid, reduce=double)
+    c_red_t, _ = kmeans_step_plain(x, None, c0, valid, reduce=double)
+    err_red = float((c_red - c_red_t).abs().max())
+    check(err_red <= 1e-6, f"K4 with a reduction deviates {err_red}")
+    check(torch.equal(kmeans_step(x, None, c0, valid,
+                                  reduce=lambda mom: mom.clone()), c_k),
+          "K4 with an identity reduction differs from the step")
     ms = time_ms(lambda: kmeans_step(x, None, c0, valid))
     plain = time_ms(lambda: kmeans_step_plain(x, None, c0, valid),
                     reps=10, warm=1)
@@ -343,7 +374,8 @@ def kernel_k4(torch, rows):
                      m * int(valid.sum()) * 7 + m * 4)
     rows.append(dict(name="kmeans_step", shape=[m, p, iters],
                      label_agreement=agree, max_abs_err=err,
-                     max_abs_err_after_iters=err_iters, ms=ms,
+                     max_abs_err_after_iters=err_iters,
+                     max_abs_err_reduced=err_red, ms=ms,
                      plain_ms=plain, library_ms=None, bound_ms=b,
                      bound_by=by))
 
@@ -434,6 +466,55 @@ def kernel_k5(torch, rows):
                          bound_by=by, grid_build_cold_ms=grid_ms))
     # the e2e phases' peak device memory counts what their calls hold
     lut.clear_grid_cache()
+
+
+def kernel_k6(torch, rows):
+    """K6 on the 2^24 table of a 256-colour palette drawn from the 4K
+    uint8 image, and on its second quarter (a rank's slice at world 4):
+    header and words equal to the plain version, the host decode equal to
+    the table; an alternating table must flag overflow."""
+    import numpy as np
+
+    from patolette_tpu_torch.kernels.rle import (header, rle_encode_u8_v2,
+                                                 rle_encode_u8_v2_plain)
+    from patolette_tpu_torch.ops import colorspace as cs
+    from patolette_tpu_torch.ops import lut
+
+    img = synth_image_u8(W, H)
+    idx = np.random.default_rng(30).integers(0, W * H, size=256)
+    centers = cs.srgb_to_working(torch.from_numpy(img[idx]).to(DEV), 2)
+    valid = torch.ones(256, dtype=torch.bool, device=DEV)
+    table = lut.build_lut_device(centers, valid, 2)
+    lut.clear_grid_cache()
+    n = lut.LUT_SIZE
+    out = {}
+    for name, t in (("full", table), ("quarter", table[n // 4:n // 2])):
+        enc = rle_encode_u8_v2(t)
+        twin = rle_encode_u8_v2_plain(t)
+        torch.cuda.synchronize()
+        count, over = header(enc)
+        check(not over and header(twin) == (count, over),
+              f"K6 {name}: header {header(enc)} against {header(twin)}")
+        words = enc[3:3 + count].cpu().numpy()
+        diff = int((words != twin[3:3 + count].cpu().numpy()).sum())
+        check(diff == 0, f"K6 {name}: {diff} words differ")
+        dec = lut.rle_decode_u8_v2(words, np.empty((t.shape[0],), np.uint8))
+        check(np.array_equal(dec, t.cpu().numpy()),
+              f"K6 {name}: decode differs from the table")
+        out[name] = (t, count, diff)
+    alt = torch.arange(n, device=DEV).remainder(2).to(torch.uint8)
+    count_alt, over_alt = header(rle_encode_u8_v2(alt))
+    check(over_alt and count_alt == n and
+          header(rle_encode_u8_v2_plain(alt)) == (n, True),
+          "K6 did not flag the alternating table")
+    for name, (t, count, diff) in out.items():
+        ms = time_ms(lambda: rle_encode_u8_v2(t))
+        plain = time_ms(lambda: rle_encode_u8_v2_plain(t), reps=3, warm=1)
+        b, by = bound_ms(t.shape[0] + 2 * (3 + count), 0)
+        rows.append(dict(
+            name="rle_encode_u8_v2" + ("" if name == "full" else "[quarter]"),
+            shape=[t.shape[0]], runs=count, max_abs_err=float(diff), ms=ms,
+            plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by))
 
 
 def kernel_k7(torch, rows):
@@ -672,6 +753,7 @@ def phase_kernels(torch):
     kernel_k4(torch, rows)
     kernel_k4_large(torch, rows)
     kernel_k5(torch, rows)
+    kernel_k6(torch, rows)
     kernel_k7(torch, rows)
     kernel_k8(torch, rows)
     kernel_k9(torch, rows)
@@ -784,7 +866,11 @@ def _profile_call(torch, call, name):
           "device_ms": device_us / 1e3,
           "device_busy_share": device_us / wall_us,
           "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
-                  for e in top]})
+                  for e in top],
+          "top_host": [[e.key[:60], e.count, e.self_cpu_time_total / 1e3]
+                       for e in sorted(prof.key_averages(),
+                                       key=lambda e: -e.self_cpu_time_total)
+                       [:8]]})
 
 
 # Kernels each path must launch (names of kernels.LAUNCHES).
@@ -1014,7 +1100,7 @@ def phase_e2e_headline(torch, peak_4k):
     emit({"phase": "e2e-headline-u16", "shape": [w, h], "palette": p16,
           "kmeans_niter": iters, "wall_s": wall16, "stage_ms": laps16,
           "launches": launches16, "cieluv_mse_1m": mse16})
-    return img, launches16
+    return img, launches16, mse
 
 
 def phase_routes(torch, img_100mp):
@@ -1388,6 +1474,378 @@ def phase_e2e_over_budget(torch, mse_resident):
     return stats["launches"]
 
 
+MESH_U8_KERNELS = ("color_convert", "lut_argmin", "rle_encode",
+                   "segment_sum", "lq_candidates", "kmeans_step")
+MESH_F32_KERNELS = ("color_convert", "assign_planar", "segment_sum",
+                    "lq_candidates", "kmeans_step")
+MESH_LAPS = {"stage-in", "palette (sharded)", "nn-map"}
+MESH_DEFAULT_LAPS = {"stage-in", "saliency", "palette (sharded)", "dither"}
+# The mesh route draws its samples per rank from (seed, rank), the
+# single-device route from seed: two draws of the same size, whose CIELuv
+# MSEs may differ by a draw's spread (not a parity check).
+MESH_MSE_RATIO = 1.02
+# Four strips change the default call by design (the JAX package's
+# semantics): strip-local saliency borders move the weights, and each
+# strip is dithered along its own curve with a fresh queue. Its dithered
+# map is held to the absolute dither checks, and its per-pixel MSE only
+# bounded against world 1's, at each seed of MESH4_SEEDS (a coarse guard:
+# the per-strip semantics are held against the JAX package's
+# dither_sharded and saliency_sharded by the CPU tests). The readings it
+# was set from are in PERF.md.
+MESH4_DEFAULT_RATIO = 1.10
+MESH4_SEEDS = (1234, 1, 2)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _TableWatch:
+    """Record the palette each sharded table build gets and the table the
+    ranks assemble (the pipeline calls both through ``ops.lut``)."""
+
+    def __init__(self):
+        from patolette_tpu_torch.ops import lut
+
+        self.lut = lut
+        self.real = (lut.build_lut_enc_sharded, lut.pull_lut_sharded)
+        self.seen = {}
+
+    def __enter__(self):
+        build, pull = self.real
+
+        def watched_build(mesh, centers, valid, csp):
+            self.seen.update(centers=centers.clone(), valid=valid.clone(),
+                             csp=csp)
+            return build(mesh, centers, valid, csp)
+
+        def watched_pull(*args):
+            self.seen["table"] = pull(*args)
+            return self.seen["table"]
+
+        self.lut.build_lut_enc_sharded = watched_build
+        self.lut.pull_lut_sharded = watched_pull
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.lut.build_lut_enc_sharded, self.lut.pull_lut_sharded = self.real
+
+
+def _single_table(seen):
+    """The single-device K5 table for the palette a sharded build got."""
+    from patolette_tpu_torch.ops import lut
+
+    table = lut.build_lut_device(seen["centers"], seen["valid"],
+                                 seen["csp"]).cpu().numpy()
+    lut.clear_grid_cache()
+    return table
+
+
+def phase_e2e_mesh(torch, img_100mp, mse_headline, profile=False):
+    """quantize(mesh=) with one rank: a world-1 NCCL group in this process
+    on cuda:0. The 4K uint8 undithered call (the sharded 24-bit table:
+    K10, K5, K6), the 4K float32 undithered call (K3 on the strip), the
+    4K default call (saliency and dither per strip: K9, K7, K8) and
+    bench.py's 100 MP uint8 image."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch.ops import lut
+    from patolette_tpu_torch.parallel import distributed as D
+
+    cpus_before = len(os.sched_getaffinity(0))
+    mesh = D.init_distributed(f"tcp://localhost:{_free_port()}", 1, 0,
+                              backend="nccl", device="cuda:0")
+    w, h, p = W, H, 256
+    img = synth_image_f32(w, h)
+    img_u8 = np.round(img * 255.0).astype(np.uint8)
+    x8 = img_u8.astype(np.float32) / np.float32(255.0)
+    undithered = dict(dither=False, tile_size=0, kmeans_niter=32,
+                      color_space=pt.ColorSpace_ICtCp)
+    out = {"launches": {}, "mse": {}}
+    try:
+        def mesh_run(kw, ww=w, hh=h):
+            def run(colors, **extra):
+                ok, pal, pmap, msg = pt.quantize(ww, hh, colors, p, mesh=mesh,
+                                                 **kw, **extra)
+                check(ok, f"mesh quantize failed: {msg}")
+                return pal, pmap
+            return run
+
+        def single(colors, kw):
+            """The single-device call on the same pixels, twice, timed: with
+            the group up, beside the mesh call's walls."""
+            walls = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                ok, pal, pmap, msg = pt.quantize(w, h, colors, p, **kw)
+                walls.append(time.perf_counter() - t0)
+                check(ok, f"single-device quantize failed: {msg}")
+            out.setdefault("single_wall_s", []).append(walls)
+            return pal, pmap
+
+        # 4K uint8, undithered: the sharded table
+        lut.clear_grid_cache()
+        run = mesh_run(undithered)
+        pal8, pmap8, st8 = _drive(torch, run, img_u8, MESH_U8_KERNELS,
+                                  "the mesh uint8 call")
+        check(st8["launches"]["assign_planar"] == 0, "K3 on the mesh table")
+        check(set(st8["stage_ms"]) == MESH_LAPS, f"laps {st8['stage_ms']}")
+        _check_outputs(pal8, pmap8, p, w * h)
+        with _TableWatch() as seen:
+            pal8b, pmap8b = run(img_u8)
+        ref = _single_table(seen)
+        check(np.array_equal(seen["table"], ref),
+              "the sharded table differs from the single-device K5 table")
+        check(np.array_equal(pmap8b, lut.lut_map_host(img_u8, ref)),
+              "the mesh map differs from the host map through the table")
+        check(np.array_equal(pmap8b, pmap8), "mesh uint8 reruns differ")
+        mse8 = _mse_luv(torch, x8, pal8, pmap8)[0]
+        ref8 = _mse_luv(torch, x8, *single(img_u8, undithered))[0]
+        out["launches"]["mesh-u8"] = st8["launches"]
+        out["mse"]["u8"] = mse8
+        emit({"phase": "e2e-mesh-u8", "shape": [w, h], "palette": p,
+              "world": 1, "backend": "nccl", "cpus_before_group":
+              cpus_before, "cpus_with_group": len(os.sched_getaffinity(0)),
+              "single_device_wall_s": out["single_wall_s"][-1], **st8,
+              "mp_per_s": w * h / 1e6 / st8["best_s"], "cieluv_mse": mse8,
+              "cieluv_mse_single_device": ref8,
+              "mse_ratio_to_single_device": mse8 / ref8,
+              "table_equals_single_device": True,
+              "bit_identical_runs": True})
+        check(mse8 <= MESH_MSE_RATIO * ref8, f"mesh uint8 MSE {mse8} / {ref8}")
+        if profile:
+            _profile_call(torch, lambda: run(img_u8), "mesh_u8")
+        lut.clear_grid_cache()
+
+        # 4K float32, undithered: K10 + K3 on the strip
+        pal, pmap, st = _drive(torch, run, img, MESH_F32_KERNELS,
+                               "the mesh float32 call")
+        check(st["launches"]["rle_encode"] == 0, "K6 on the float call")
+        check(set(st["stage_ms"]) == MESH_LAPS, f"laps {st['stage_ms']}")
+        _check_outputs(pal, pmap, p, w * h)
+        mse = _mse_luv(torch, img, pal, pmap)[0]
+        ref = _mse_luv(torch, img, *single(img, undithered))[0]
+        out["launches"]["mesh-f32"] = st["launches"]
+        emit({"phase": "e2e-mesh-f32", "shape": [w, h], "palette": p,
+              "world": 1, "single_device_wall_s": out["single_wall_s"][-1],
+              **st, "mp_per_s": w * h / 1e6 / st["best_s"],
+              "cieluv_mse": mse, "cieluv_mse_single_device": ref,
+              "mse_ratio_to_single_device": mse / ref,
+              "bit_identical_runs": True})
+        check(mse <= MESH_MSE_RATIO * ref, f"mesh float MSE {mse} / {ref}")
+
+        # 4K default call: saliency and dither on the strip
+        run = mesh_run({})
+        pal, pmap, st = _drive(torch, run, img, DEFAULT_PATH_KERNELS,
+                               "the mesh default call")
+        check(set(st["stage_ms"]) == MESH_DEFAULT_LAPS,
+              f"laps {st['stage_ms']}")
+        _check_outputs(pal, pmap, p, w * h)
+        quality = _dither_quality(torch, img, pal, pmap, w, h,
+                                  "mesh default call")
+        ref = _mse_luv(torch, img, *single(img, {}))[0]
+        out["launches"]["mesh-default"] = st["launches"]
+        out["mse"]["default"] = quality["cieluv_mse"]
+        emit({"phase": "e2e-mesh-default", "shape": [w, h], "palette": p,
+              "world": 1, "single_device_wall_s": out["single_wall_s"][-1],
+              **st, "mp_per_s": w * h / 1e6 / st["best_s"],
+              **quality, "cieluv_mse_single_device": ref,
+              "mse_ratio_to_single_device": quality["cieluv_mse"] / ref,
+              "bit_identical_runs": True})
+        check(quality["cieluv_mse"] <= MESH_MSE_RATIO * ref,
+              f"mesh default MSE {quality['cieluv_mse']} / {ref}")
+        for seed in MESH4_SEEDS[1:]:  # world 1's side of e2e-mesh-4
+            out["mse"][f"default_seed{seed}"] = _mse_luv(
+                torch, img, *run(img, seed=seed))[0]
+
+        # bench.py's 100 MP uint8 image, 25 iterations
+        hw, hh = HEADLINE_W, HEADLINE_H
+        run = mesh_run(dict(undithered, kmeans_niter=25), hw, hh)
+        pal, pmap, st = _drive(torch, run, img_100mp, MESH_U8_KERNELS,
+                               "the mesh 100 MP call")
+        check(st["launches"]["assign_planar"] == 0, "K3 on the 100 MP mesh")
+        _check_outputs(pal, pmap, p, hw * hh)
+        idx = np.random.default_rng(1).integers(0, hw * hh, size=1 << 20)
+        sub = img_100mp[idx].astype(np.float32) / np.float32(255.0)
+        mse = _mse_luv(torch, sub, pal, pmap[idx])[0]
+        emit({"phase": "e2e-mesh-headline", "shape": [hw, hh], "palette": p,
+              "kmeans_niter": 25, "world": 1, **st,
+              "mp_per_s": hw * hh / 1e6 / st["best_s"],
+              "cieluv_mse_1m": mse, "cieluv_mse_1m_single_device":
+              mse_headline, "mse_ratio_to_single_device": mse / mse_headline,
+              "bit_identical_runs": True})
+        check(mse <= MESH_MSE_RATIO * mse_headline,
+              f"mesh 100 MP MSE {mse} / {mse_headline}")
+        lut.clear_grid_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def mesh_worker(port, rank, world, out_dir):
+    """One rank of e2e-mesh-4 (``chip_smoke.py --mesh-worker PORT RANK
+    WORLD DIR``): gloo, every rank on cuda:0; the 4K uint8 undithered call
+    and the 4K default call, each three times, then the default call at
+    the other seeds of MESH4_SEEDS and without saliency, once each;
+    results into DIR/rRANK.npz."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch import kernels
+    from patolette_tpu_torch.models import pipeline
+    from patolette_tpu_torch.parallel import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = D.init_distributed(f"tcp://localhost:{port}", int(world),
+                              int(rank), backend="gloo", device="cuda:0",
+                              timeout=datetime.timedelta(seconds=120))
+    img = synth_image_f32(W, H)
+    img_u8 = np.round(img * 255.0).astype(np.uint8)
+    res, meta = {}, {}
+    for tag, colors, kw in (
+            ("u8", img_u8, dict(dither=False, tile_size=0, kmeans_niter=32,
+                                color_space=pt.ColorSpace_ICtCp)),
+            ("default", img, {})):
+        walls = []
+        for i in range(3):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with _TableWatch() as seen:
+                ok, pal, pmap, msg = pt.quantize(W, H, colors, 256,
+                                                 mesh=mesh, **kw)
+            walls.append(time.perf_counter() - t0)
+            check(ok, f"rank {rank} {tag}: {msg}")
+            if i == 1:
+                meta[tag] = {"launches": dict(kernels.LAUNCHES),
+                             "stage_ms": dict(pipeline.LAST_STAGE_TIMES)}
+                res[tag + "_pal"], res[tag + "_map"] = pal, pmap
+            elif i == 2:
+                check(np.array_equal(pal, res[tag + "_pal"])
+                      and np.array_equal(pmap, res[tag + "_map"]),
+                      f"rank {rank} {tag}: reruns differ")
+        meta[tag]["wall_s"] = walls
+        if "table" in seen:
+            res["table"] = seen["table"]
+            res["centers"] = seen["centers"].cpu().numpy()
+            res["valid"] = seen["valid"].cpu().numpy()
+    # the default call at the other seeds, and without saliency (what the
+    # MSE bound against world 1 would see if the saliency went missing)
+    for tag, kw in [(f"default_seed{s}", dict(seed=s))
+                    for s in MESH4_SEEDS[1:]] + [("no_saliency",
+                                                  dict(tile_size=0))]:
+        ok, pal, pmap, msg = pt.quantize(W, H, img, 256, mesh=mesh, **kw)
+        check(ok, f"rank {rank} {tag}: {msg}")
+        res[tag + "_pal"], res[tag + "_map"] = pal, pmap
+    meta["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    np.savez(pathlib.Path(out_dir) / f"r{rank}.npz", **res)
+    (pathlib.Path(out_dir) / f"r{rank}.json").write_text(json.dumps(meta))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_e2e_mesh4(torch, mse_world1):
+    """Four ranks sharing cuda:0 over a gloo group (NCCL takes one rank a
+    GPU): every rank's palette and map identical, K6 launched on every
+    rank, the assembled table equal to the single-device K5 table for the
+    palette, and the MSE against world 1's."""
+    import shutil
+
+    import numpy as np
+
+    world = 4
+    out_dir = ROOT / "build" / "mesh4"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+         str(port), str(r), str(world), str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"mesh rank {r} failed:\n{log[-3000:]}")
+    res = [dict(np.load(out_dir / f"r{r}.npz")) for r in range(world)]
+    meta = [json.loads((out_dir / f"r{r}.json").read_text())
+            for r in range(world)]
+    for r in range(1, world):
+        for key in res[0]:
+            check(np.array_equal(res[r][key], res[0][key]),
+                  f"rank {r} differs from rank 0 in {key}")
+    for r, m in enumerate(meta):
+        for name in MESH_U8_KERNELS:
+            check(m["u8"]["launches"][name] > 0,
+                  f"rank {r}: {name} not launched on the uint8 call")
+        for name in DEFAULT_PATH_KERNELS:
+            check(m["default"]["launches"][name] > 0,
+                  f"rank {r}: {name} not launched on the default call")
+    seen = {"centers": torch.from_numpy(res[0]["centers"]).to(DEV),
+            "valid": torch.from_numpy(res[0]["valid"]).to(DEV), "csp": 2}
+    check(np.array_equal(res[0]["table"], _single_table(seen)),
+          "the four ranks' table differs from the single-device K5 table")
+    img = synth_image_f32(W, H)
+    x8 = np.round(img * 255.0).astype(np.uint8)
+    mse8 = _mse_luv(torch, x8.astype(np.float32) / np.float32(255.0),
+                    res[0]["u8_pal"], res[0]["u8_map"])[0]
+    quality = _dither_quality(torch, img, res[0]["default_pal"],
+                              res[0]["default_map"], W, H,
+                              "world-4 default call")
+    mse_d = quality["cieluv_mse"]
+    ratios = {MESH4_SEEDS[0]: mse_d / mse_world1["default"]}
+    for seed in MESH4_SEEDS[1:]:
+        tag = f"default_seed{seed}"
+        ratios[seed] = _mse_luv(torch, img, res[0][tag + "_pal"],
+                                res[0][tag + "_map"])[0] / mse_world1[tag]
+    no_sal = _mse_luv(torch, img, res[0]["no_saliency_pal"],
+                      res[0]["no_saliency_map"])[0]
+    emit({"phase": "e2e-mesh-4", "shape": [W, H], "palette": 256,
+          "world": world, "backend": "gloo", "devices": "cuda:0 shared",
+          "seconds": secs, "walls_s": {
+              tag: [m[tag]["wall_s"] for m in meta]
+              for tag in ("u8", "default")},
+          "stage_ms_rank0": {tag: meta[0][tag]["stage_ms"]
+                             for tag in ("u8", "default")},
+          "launches_rank0": {tag: meta[0][tag]["launches"]
+                             for tag in ("u8", "default")},
+          "peak_device_bytes": [m["peak_device_bytes"] for m in meta],
+          "cieluv_mse_u8": mse8,
+          **{"default_" + k: v for k, v in quality.items()},
+          "mse_ratio_to_world1_u8": mse8 / mse_world1["u8"],
+          "mse_ratio_to_world1_default": mse_d / mse_world1["default"],
+          "mse_ratio_to_world1_default_by_seed": ratios,
+          "no_saliency_mse_ratio_to_world1_default":
+              no_sal / mse_world1["default"],
+          "ranks_identical": True, "table_equals_single_device": True})
+    check(mse8 <= MESH_MSE_RATIO * mse_world1["u8"],
+          f"world-4 uint8 MSE {mse8} against world 1's")
+    for seed, ratio in ratios.items():
+        check(ratio <= MESH4_DEFAULT_RATIO,
+              f"world-4 default MSE {ratio}x world 1's at seed {seed}")
+    return {"mesh4-u8": meta[0]["u8"]["launches"]}
+
+
 def phase_golden(torch):
     """Small-input reference: the four golden configs."""
     import numpy as np
@@ -1443,16 +1901,23 @@ SOURCES = {
             "patolette_tpu/models/saliency.py:62", "default"),
     "color_convert": ("patolette_tpu_torch/csrc/colorspace.cu",
                       "patolette_tpu/ops/colorspace.py:353", "main"),
+    "rle_encode_u8_v2": ("patolette_tpu_torch/csrc/rle.cu",
+                         "patolette_tpu/ops/lut.py:206", "mesh-u8"),
 }
+# row name -> its kernels.LAUNCHES key, where they differ
+LAUNCH_KEYS = {"rle_encode_u8_v2": "rle_encode"}
 
 
 # kernel rows of another instantiation, counted on the path that runs it
 ROW_PATHS = {"lut_argmin[1024]": "u16-lut",
+             "rle_encode_u8_v2[quarter]": "mesh4-u8",
              **{row[0]: row[4] for row in K10_ROWS}}
 ROW_REPLACES = {row[0]: row[5] for row in K10_ROWS}
 
 
 def main():
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(*sys.argv[2:6])
     try:
         import torch
     except ImportError:
@@ -1477,10 +1942,14 @@ def main():
         torch, profile=profile)
     launches = {"main": main_launches, "u8-lut": u8_launches,
                 "default": phase_e2e_default(torch, profile=profile)}
-    img_100mp, launches["u16-lut"] = phase_e2e_headline(torch, peak_u8)
+    img_100mp, launches["u16-lut"], mse_headline = phase_e2e_headline(
+        torch, peak_u8)
     launches["strip-dither"] = phase_e2e_strip_dither(torch, profile=profile)
     launches["strip-u8"] = phase_e2e_strip_headline(torch, img_100mp)
     launches["over-budget"] = phase_e2e_over_budget(torch, mse_resident)
+    mesh = phase_e2e_mesh(torch, img_100mp, mse_headline, profile=profile)
+    launches.update(mesh["launches"])
+    launches.update(phase_e2e_mesh4(torch, mesh["mse"]))
     phase_golden(torch)
     if "--routes" in sys.argv[1:]:
         phase_routes(torch, img_100mp)
@@ -1494,7 +1963,7 @@ def main():
         line.append({
             "name": r["name"], "route": "cuda", "source": src,
             "replaces": ROW_REPLACES.get(r["name"], replaces),
-            "launches": launches[path][key],
+            "launches": launches[path][LAUNCH_KEYS.get(key, key)],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

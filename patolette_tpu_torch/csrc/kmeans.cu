@@ -1,16 +1,19 @@
-// K4: one weighted Lloyd step, fused.
+// K4: one weighted Lloyd step.
 //
 // Replaces the loop body of patolette_tpu/models/kmeans.py::lloyd_iterations
 // (assign -> one-hot segment matmul of [w, w x] -> centre update ->
 // _split_empty). The JAX package ran it as three XLA programs a step; here
-// it is two kernels and no host round trip, so a whole KMeans run is
-// enqueued without a sync.
+// it is three kernels in two entry points (the moments, then the update,
+// so the multi-device route can sum the ranks' moments between them) and
+// no host round trip, so a whole single-device KMeans run is enqueued
+// without a sync.
 //
 // kmeans_partial: each sample's nearest centre (K3's arithmetic: skip
 // invalid slots, strict <, |c|^2 - 2 ((xa ca + xb cb) + xc cc) with every
 // op rounded on its own), then [w, w x0, w x1, w x2] accumulated into a
-// per-block (P, 4) table by owner scans (no atomics).
-// kmeans_finalize: ONE block sums the partials in block order, updates the
+// per-block (P, 4) table by owner scans (no atomics); pt_sum_partials sums
+// the tables in block order.
+// kmeans_finalize: ONE block updates the
 // centres (mean where the cluster has mass and the slot is valid) and walks
 // the P slots in order as _split_empty does: a valid empty slot takes the
 // valid cluster of largest mass (first index on ties), both move by
@@ -26,9 +29,9 @@
 // kTile (a sample's running minimum carries across tiles, strict <, so the
 // lowest index still wins ties), and a (P, 4) table that does not fit in
 // shared memory (P > kSmemTable) is kept in the block's own slice of the
-// partials in device memory, with the same owner scans. The finalize's
-// (P, 4) sums and (P,) masses move to device scratch the same way; the
-// centres are updated in place in the output.
+// partials in device memory, with the same owner scans. The finalize then
+// reads the (P, 4) sums in device memory, keeps the (P,) masses in device
+// scratch and updates the centres in place in the output.
 #include "common.cuh"
 
 namespace {
@@ -147,31 +150,27 @@ __device__ __forceinline__ void argmax_merge(float& v1, int& i1, float v2,
 }
 
 template <bool kShared>
-__global__ void kmeans_finalize(const float* __restrict__ partials,
-                                int nblocks, const float* __restrict__ cin,
+__global__ void kmeans_finalize(const float* __restrict__ gmom,
+                                const float* __restrict__ cin,
                                 float* __restrict__ cout,
                                 const int* __restrict__ valid, int p,
-                                float* gmom, float* ghs) {
+                                float* ghs) {
   __shared__ float red_v[kFinalizeThreads];
   __shared__ int red_i[kFinalizeThreads];
   extern __shared__ float fsm[];
   // (P, 4) sums, (P,) masses, (P, 3) centres and (P,) flags in shared
-  // memory when they fit, else in device scratch and the output itself
-  float* mom = kShared ? fsm : gmom;                          // p * 4
-  float* hs = kShared ? mom + (size_t)p * 4 : ghs;            // p
+  // memory when they fit, else read from the sums in device memory, the
+  // masses in device scratch and the centres in the output itself
+  float* smom = fsm;                                          // p * 4
+  float* hs = kShared ? smom + (size_t)p * 4 : ghs;           // p
   float* cent = kShared ? hs + p : cout;                      // p * 3
   const int* sv = kShared ? (const int*)(cent + (size_t)p * 3) : valid;
+  const float* mom = kShared ? smom : gmom;
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < p * 4; i += blockDim.x) {
-    float acc = 0.0f;
-    for (int b = 0; b < nblocks; ++b) {
-      acc = __fadd_rn(acc, partials[(size_t)b * p * 4 + i]);
-    }
-    mom[i] = acc;
-  }
   for (int i = tid; i < p * 3; i += blockDim.x) cent[i] = cin[i];
   if (kShared) {
+    for (int i = tid; i < p * 4; i += blockDim.x) smom[i] = gmom[i];
     for (int k = tid; k < p; k += blockDim.x) ((int*)sv)[k] = valid[k];
   }
   __syncthreads();
@@ -226,10 +225,10 @@ __global__ void kmeans_finalize(const float* __restrict__ partials,
 }
 
 template <bool kShared>
-int kmeans_step(const float* x, const float* w, const float* cin,
-                const int* valid, int m, int p, int per_block, int nblocks,
-                float* partials, int* labels, float* cout, float* mom,
-                float* hs, cudaStream_t st) {
+int kmeans_moments(const float* x, const float* w, const float* cin,
+                   const int* valid, int m, int p, int per_block,
+                   int nblocks, float* partials, int* labels, float* mom,
+                   cudaStream_t st) {
   const int tile = p < kTile ? p : kTile;
   const size_t smem1 = (size_t)tile * 16 + (size_t)((tile + 3) & ~3) * 4 +
                        PT_STAGE * 16 + PT_STAGE * 4 +
@@ -240,31 +239,52 @@ int kmeans_step(const float* x, const float* w, const float* cin,
   if (err != cudaSuccess) return (int)err;
   kmeans_partial<kShared><<<nblocks, PT_THREADS, smem1, st>>>(
       x, w, cin, valid, m, p, per_block, partials, labels);
+  const int len = p * 4;
+  pt_sum_partials<<<(len + 255) / 256, 256, 0, st>>>(partials, nblocks, len,
+                                                      mom);
+  return (int)cudaGetLastError();
+}
+
+template <bool kShared>
+int kmeans_update(const float* mom, const float* cin, const int* valid,
+                  int p, float* cout, float* ghs, cudaStream_t st) {
   const size_t smem2 = kShared ? (size_t)p * (4 + 1 + 3 + 1) * 4 : 0;
-  err = cudaFuncSetAttribute(kmeans_finalize<kShared>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
+  cudaError_t err = cudaFuncSetAttribute(
+      kmeans_finalize<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem2);
   if (err != cudaSuccess) return (int)err;
   kmeans_finalize<kShared><<<1, kFinalizeThreads, smem2, st>>>(
-      partials, nblocks, cin, cout, valid, p, mom, hs);
+      mom, cin, cout, valid, p, ghs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (M, 3); w: (M,) or NULL (weight 1); cin/cout: (P, 3); valid: (P,)
-// int32; partials: (nblocks, P, 4) scratch; labels: (M,) or NULL; mom:
-// (P, 4) and hs: (P,) scratch, used when P > kSmemTable.
-PT_EXPORT int pt_kmeans_step(const float* x, const float* w, const float* cin,
-                             const int* valid, int m, int p, int per_block,
-                             int nblocks, float* partials, int* labels,
-                             float* cout, float* mom, float* hs,
-                             void* stream) {
+// The step's first half: labels (optional) and the (P, 4) [w, w x] sums of
+// this device's samples into mom.
+PT_EXPORT int pt_kmeans_moments(const float* x, const float* w,
+                                 const float* cin, const int* valid, int m,
+                                 int p, int per_block, int nblocks,
+                                 float* partials, int* labels, float* mom,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (p <= kSmemTable) {
-    return kmeans_step<true>(x, w, cin, valid, m, p, per_block, nblocks,
-                             partials, labels, cout, mom, hs, st);
+    return kmeans_moments<true>(x, w, cin, valid, m, p, per_block, nblocks,
+                                partials, labels, mom, st);
   }
-  return kmeans_step<false>(x, w, cin, valid, m, p, per_block, nblocks,
-                            partials, labels, cout, mom, hs, st);
+  return kmeans_moments<false>(x, w, cin, valid, m, p, per_block, nblocks,
+                               partials, labels, mom, st);
+}
+
+// The step's second half: centre update and empty-cluster split from the
+// (P, 4) sums mom (this device's, or every rank's), cin -> cout; ghs (P,)
+// scratch when P > kSmemTable.
+PT_EXPORT int pt_kmeans_update(const float* mom, const float* cin,
+                               const int* valid, int p, float* cout,
+                               float* ghs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (p <= kSmemTable) {
+    return kmeans_update<true>(mom, cin, valid, p, cout, ghs, st);
+  }
+  return kmeans_update<false>(mom, cin, valid, p, cout, ghs, st);
 }

@@ -1,6 +1,7 @@
 // Host half of the 24-bit LUT route: pack (N, 3) uint8 sRGB pixels into
 // 24-bit codes (r << 16 | g << 8 | b) and resolve them through the (2^24,)
-// table K5 built, on POSIX threads, into the int32 palette map.
+// table K5 built, on POSIX threads, into the int32 palette map; and decode
+// a table slice from K6's run words (the multi-device route).
 //
 // Counterpart of the JAX package's native gather (lut_map_u8), written anew
 // for the port: one pass over the pixels with the codes packed in
@@ -13,6 +14,7 @@
 // pthreads, so the library depends on nothing but the C library.
 #include <pthread.h>
 #include <stdint.h>
+#include <string.h>
 
 #define PT_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -88,5 +90,28 @@ PT_EXPORT int pt_lut_map(const uint8_t* px, long long n, const void* table,
   if (table_bytes != 1 && table_bytes != 2 && table_bytes != 4) return 1;
   Job j = {px, table, table_bytes, out, 0, 0};
   run(j, n, nthreads);
+  return 0;
+}
+
+// words: (count,) u16 run words w_i = (delta_i << 8) | value_i (K6's v2
+// format without its header), delta_0 = 0; out: (size,) u8. Run i fills
+// [start_i, start_{i+1}) with start_count = size, one memset a run
+// (counterpart of the JAX package's native rle_decode_u8_v2). Returns 0,
+// or 2 for words that do not describe a (size,) table.
+PT_EXPORT int pt_rle_decode_u8_v2(const uint16_t* words, long long count,
+                                  uint8_t* out, long long size) {
+  if (count < 1 || (words[0] >> 8) != 0) return 2;
+  long long start = 0;
+  for (long long i = 0; i < count; ++i) {
+    long long next = size;
+    if (i + 1 < count) {
+      const long long d = words[i + 1] >> 8;
+      if (d < 1) return 2;
+      next = start + d;
+    }
+    if (next > size) return 2;
+    memset(out + start, words[i] & 0xFF, (size_t)(next - start));
+    start = next;
+  }
   return 0;
 }

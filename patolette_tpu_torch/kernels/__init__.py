@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port and their plain-PyTorch twins.
 
 One module per kernel: ``segment`` (K1), ``lq`` (K2), ``assign`` (K3),
-``kmeans`` (K4), ``lut`` (K5), ``hilbert`` (K7), ``dither`` (K8), ``mbd``
+``kmeans`` (K4), ``lut`` (K5), ``rle`` (K6), ``hilbert`` (K7), ``dither`` (K8), ``mbd``
 (K9), ``colorspace`` (K10). Each wrapper takes the twin for tensors on the CPU and launches its
 kernel (or raises) for tensors on the card; ``LAUNCHES`` counts the wrapper
 calls that launched, so a run can show that its path went through them.
@@ -13,6 +13,7 @@ LAUNCHES = {
     "assign_planar": 0,
     "kmeans_step": 0,
     "lut_argmin": 0,
+    "rle_encode": 0,
     "hilbert_keys": 0,
     "dither_scan": 0,
     "mbd": 0,

@@ -12,7 +12,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises when it is not 0.
 
 The host half of the LUT route (``csrc/lut_map.cpp``, plain C++ on POSIX
-threads) is built the same way by the host C++ compiler into
+threads: the map, and the decode of K6's encoded slices) is built the same way by the host C++ compiler into
 ``build/host/<hash>/`` (:func:`host_library`); it runs on the CPU too, so
 the tests reach it.
 """
@@ -30,7 +30,8 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "kernels"
 SOURCES = ("segment_sum.cu", "lq_candidates.cu", "assign.cu", "kmeans.cu",
-           "hilbert.cu", "dither.cu", "mbd.cu", "lut.cu", "colorspace.cu")
+           "hilbert.cu", "dither.cu", "mbd.cu", "lut.cu", "colorspace.cu",
+           "rle.cu")
 HEADERS = ("common.cuh", "nearest.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,13 +47,14 @@ SIGNATURES = {
     "pt_segment_sum": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "pt_lq_candidates": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "pt_assign_planar": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
-    "pt_kmeans_step": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                       _P),
+    "pt_kmeans_moments": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "pt_kmeans_update": (_P, _P, _P, _I, _P, _P, _P),
     "pt_hilbert_keys": (_L, _I, _I, _P, _P),
     "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "pt_mbd": (_P, _P, _P, _P, _I, _I, _P),
     "pt_lut_argmin": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
     "pt_color_convert": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
+    "pt_rle_encode_u8_v2": (_P, _I, _P, _P, _P, _P, _L, _P),
 }
 
 HOST_SOURCE = "lut_map.cpp"
@@ -61,6 +63,7 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 HOST_LIB_NAME = "libpatolette_host.so"
 HOST_SIGNATURES = {
     "pt_lut_map": (_P, _L, _P, _I, _P, _I),
+    "pt_rle_decode_u8_v2": (_P, _L, _P, _L),
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,15 @@
-"""K4: one fused weighted Lloyd step.
+"""K4: one weighted Lloyd step.
 
-Kernel: ``csrc/kmeans.cu`` (assignment + per-block ``[w, w x]`` partials,
-then one block that sums them, updates the centres and runs the empty-
-cluster split). Any number of centres: the kernel tiles them through shared
-memory and keeps tables that do not fit there in device scratch. Twin: the
-JAX package's loop body (``kmeans.py:104-117``) with ``_split_empty``
-(``kmeans.py:59-86``).
+Kernel: ``csrc/kmeans.cu``, two entry points: the moments
+(``pt_kmeans_moments``: assignment, per-block ``[w, w x]`` partials, their
+sum in block order into ``(P, 4)``) and the update (``pt_kmeans_update``:
+one block updates the centres from those sums and runs the empty-cluster
+split). ``reduce`` runs between them: the multi-device route sums the
+ranks' moments there, as the JAX package ``psum``s its one-hot sums before
+the update (``kmeans.py:107-113``). Any number of centres: the kernel
+tiles them through shared memory and keeps tables that do not fit there in
+device scratch. Twin: the JAX package's loop body (``kmeans.py:104-117``)
+with ``_split_empty`` (``kmeans.py:59-86``).
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ def split_empty(centers, hassign, valid):
     return torch.from_numpy(c).to(centers.device)
 
 
-def kmeans_step_plain(samples, weights, centers, valid):
+def kmeans_step_plain(samples, weights, centers, valid, reduce=None):
     p = centers.shape[0]
     labels = assign_planar_plain(
         (samples[:, 0], samples[:, 1], samples[:, 2]), centers, valid
@@ -60,6 +64,8 @@ def kmeans_step_plain(samples, weights, centers, valid):
     mom = segment_sum_plain(
         torch.cat([w[:, None], w[:, None] * samples], dim=-1), labels, p
     )
+    if reduce is not None:
+        mom = reduce(mom)
     hassign = mom[:, 0]
     nonzero = hassign > 0.0
     new = mom[:, 1:4] / torch.where(nonzero, hassign, 1.0)[:, None]
@@ -68,11 +74,14 @@ def kmeans_step_plain(samples, weights, centers, valid):
     return centers, labels
 
 
-def kmeans_step(samples, weights, centers, valid, return_labels=False):
+def kmeans_step(samples, weights, centers, valid, return_labels=False,
+                reduce=None):
     """One Lloyd step; returns the new centres (and the labels it assigned
-    when ``return_labels``)."""
+    when ``return_labels``). ``reduce``: maps this device's ``(P, 4)``
+    ``[w, w x]`` sums to the sums the update uses (None: itself)."""
     if samples.device.type == "cpu":
-        new, labels = kmeans_step_plain(samples, weights, centers, valid)
+        new, labels = kmeans_step_plain(samples, weights, centers, valid,
+                                        reduce)
         return (new, labels) if return_labels else new
     m = samples.shape[0]
     p = centers.shape[0]
@@ -91,16 +100,27 @@ def kmeans_step(samples, weights, centers, valid, return_labels=False):
     nblocks = max(1, min(MAX_BLOCKS, -(-m // PIXELS_PER_BLOCK)))
     per_block = max(1, -(-m // nblocks))
     partials = torch.empty((nblocks, p, 4), dtype=torch.float32, device=dev)
+    mom = torch.empty((p, 4), dtype=torch.float32, device=dev)
     out = torch.empty((p, 3), dtype=torch.float32, device=dev)
-    scratch = torch.empty((p * 5,), dtype=torch.float32, device=dev)
+    masses = torch.empty((p,), dtype=torch.float32, device=dev)
     labels = (torch.empty((m,), dtype=torch.int32, device=dev)
               if return_labels else None)
-    err = build.library().pt_kmeans_step(
+    lib = build.library()
+    err = lib.pt_kmeans_moments(
         build.ptr(samples), build.ptr(weights), build.ptr(centers),
         build.ptr(valid_i), m, p, per_block, nblocks, build.ptr(partials),
-        build.ptr(labels), build.ptr(out), build.ptr(scratch[:p * 4]),
-        build.ptr(scratch[p * 4:]), build.stream(),
+        build.ptr(labels), build.ptr(mom), build.stream(),
     )
-    build.check(err, "kmeans_step")
+    build.check(err, "kmeans_step (moments)")
+    if reduce is not None:
+        mom = reduce(mom).contiguous()
+        if mom.shape != (p, 4) or mom.dtype != torch.float32 \
+                or mom.device != dev:
+            raise ValueError("kmeans_step: reduce must keep (P, 4) f32")
+    err = lib.pt_kmeans_update(
+        build.ptr(mom), build.ptr(centers), build.ptr(valid_i), p,
+        build.ptr(out), build.ptr(masses), build.stream(),
+    )
+    build.check(err, "kmeans_step (update)")
     kernels.LAUNCHES["kmeans_step"] += 1
     return (out, labels) if return_labels else out

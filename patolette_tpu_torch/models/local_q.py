@@ -14,6 +14,10 @@ masses (Q2), linear binning without the round-robin fallback, the DELTA
 stop, the top-B batch (S6) with its cap and round count, and the left
 child taking the new slot ``count + j``.
 
+With ``mesh``, the pass-1 and pass-2 segment sums and K2's (C, 512, 5)
+table are summed over the ranks (the JAX package's ``psum``s), so every
+rank takes the same splits from the same reduced values.
+
 The rounds are a Python loop over torch state; the loop reads one integer
 a round (how many clusters split) and stops early. The TPU-only
 constructs (compare-and-select instead of gathers, rank maps instead of
@@ -29,6 +33,7 @@ import torch
 from patolette_tpu_torch.kernels.lq import lq_candidates
 from patolette_tpu_torch.ops import eigen3
 from patolette_tpu_torch.ops import moments as M
+from patolette_tpu_torch.parallel import mesh as PM
 
 BUCKET_COUNT = 512
 DELTA = 1e-16
@@ -48,7 +53,8 @@ class Candidates(NamedTuple):
 
 
 def _candidates_segmented(colors, w, labels, ids, p,
-                          bucket_count=BUCKET_COUNT, mu_known=None):
+                          bucket_count=BUCKET_COUNT, mu_known=None,
+                          mesh=None):
     """Candidate splits for a SET of pairwise-disjoint clusters ``ids``
     ((C,) int; entries equal to ``p`` are dead slots with no pixels).
 
@@ -69,7 +75,8 @@ def _candidates_segmented(colors, w, labels, ids, p,
     if mu_known is None:
         # Pass 1: weighted means (cluster.c:171-189).
         m1 = M.segment_matmul(
-            torch.cat([wm[:, None], wm[:, None] * colors], dim=-1), cand, c
+            torch.cat([wm[:, None], wm[:, None] * colors], dim=-1), cand, c,
+            mesh=mesh,
         )
         mu = m1[:, 1:4] / torch.clamp_min(m1[:, 0:1], _EPS)
     else:
@@ -78,7 +85,7 @@ def _candidates_segmented(colors, w, labels, ids, p,
     # Pass 2: central moments -> distortion, covariance, principal axis.
     mu_ext = torch.cat([mu, torch.zeros((1, 3), dtype=mu.dtype, device=dev)])
     x = colors - mu_ext[cand.long()]
-    mom = M.segment_moments(x, cand, c, weights=wm)
+    mom = M.segment_moments(x, cand, c, weights=wm, mesh=mesh)
     w0 = mom[:, M.IDX_W0]
     d = M.moments_distortion(mom)
     axis, evals = eigen3.principal_axis(M.moments_cov(mom))
@@ -91,6 +98,7 @@ def _candidates_segmented(colors, w, labels, ids, p,
     tab = torch.cat([mu, axis, pmin[:, None], scale[:, None]], dim=1)
     bstats, bucket = lq_candidates(colors, wm, cand, tab.contiguous(),
                                    bucket_count)
+    bstats = PM.psum(mesh, bstats)
 
     cum = torch.cumsum(bstats, dim=1)
     sl = cum[..., 0]
@@ -156,7 +164,8 @@ def top_b(values, b):
 
 
 def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
-                bucket_count=BUCKET_COUNT, batch_splits: int = 1):
+                bucket_count=BUCKET_COUNT, batch_splits: int = 1,
+                mesh=None):
     """Greedy splitting from ``k0`` initial clusters up to
     ``palette_size``. Returns ``(labels (N,) int32, count)``."""
     n = colors.shape[0]
@@ -169,7 +178,7 @@ def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
 
     ids0 = torch.arange(max_k0, dtype=torch.int32, device=dev)
     first = _candidates_segmented(colors, w, init_labels, ids0, p,
-                                  bucket_count)
+                                  bucket_count, mesh=mesh)
     benefit = torch.zeros((p,), dtype=colors.dtype, device=dev)
     mu_child = torch.zeros((p, 2, 3), dtype=colors.dtype, device=dev)
     benefit[:max_k0] = torch.where(ids0 < k0, first.benefit, 0.0)
@@ -210,7 +219,8 @@ def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
         mu_known = torch.cat([mu_child[sel.long(), 0],
                               mu_child[sel.long(), 1]])
         res = _candidates_segmented(colors, w, labels, ids2b, p,
-                                    bucket_count, mu_known=mu_known)
+                                    bucket_count, mu_known=mu_known,
+                                    mesh=mesh)
         side = torch.where(res.member, res.side, side)
         live = ids2b[valid2].long()
         benefit[live] = res.benefit[valid2]

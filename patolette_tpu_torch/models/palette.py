@@ -2,7 +2,8 @@
 
 Port of ``patolette_tpu/models/palette.py`` (reference
 PALETTE_create, create.c:11-33): palette entry i is the weighted center of
-cluster i, from one segment sum (K1) over the labels.
+cluster i, from one segment sum (K1) over the labels, summed over the
+ranks with ``mesh``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 from patolette_tpu_torch.ops import moments as M
 
 
-def centers_from_labels(colors, weights, labels, num_slots: int):
+def centers_from_labels(colors, weights, labels, num_slots: int, mesh=None):
     """Returns ``(centers (P,3), mass (P,))``; empty slots get zero centers
     and zero mass."""
     n = colors.shape[0]
@@ -22,6 +23,7 @@ def centers_from_labels(colors, weights, labels, num_slots: int):
         torch.cat([w[:, None], w[:, None] * colors], dim=-1),
         labels.to(torch.int32),
         num_slots,
+        mesh=mesh,
     )
     mass = mom[:, 0]
     ok = mass > 0.0

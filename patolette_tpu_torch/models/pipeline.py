@@ -1,6 +1,6 @@
 """Quantization pipeline: the public ``quantize`` API of the port.
 
-Three routes, chosen as the JAX package's ``_quantize_body`` chooses them:
+Four routes, chosen as the JAX package's ``_quantize_body`` chooses them:
 
 * **Sampled** (``_quantize_via_samples``, the JAX staged variant): uint8
   undithered images without saliency of at least 4 MP, and every
@@ -35,9 +35,19 @@ resident route's LQ draw is the JAX package's exact draw; its KMeans draw
 follows from the same ``rng`` where the JAX package draws with
 ``jax.random`` (README divergence T1).
 
-Not in this slice (a typed failure that names it): ``mesh=``. Over the
-device budget, calls with saliency or with ``lq_max_samples=0`` fail
-typed, as in the JAX package.
+* **Sharded** (``_quantize_sharded``, the JAX package's): with
+  ``mesh=`` (``parallel/mesh.py``), when the pixels (and, for a dither,
+  the rows) divide over the ranks. Each rank holds a contiguous row strip;
+  saliency and the dither run per strip; the palette search runs on each
+  rank's own host-drawn samples with every sum reduced over the ranks;
+  the map is K10 + K3 per strip, or, for uint8 undithered calls of at
+  least 4 MP, the 24-bit table built in slices (K5 and K6 per rank) and
+  resolved on every rank's host. ``parallel/distributed.py`` gives the
+  same route one call per process on the rank's rows alone.
+
+Over the device budget, calls with saliency or with ``lq_max_samples=0``
+fail typed, as in the JAX package; the sharded route has no budget check,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from patolette_tpu_torch.ops import eigen3
 from patolette_tpu_torch.ops import lut as LUT
 from patolette_tpu_torch.ops import moments as M
 from patolette_tpu_torch.ops.assign import assign_planar
+from patolette_tpu_torch.parallel import mesh as PM
 from patolette_tpu_torch.utils import errors
 from patolette_tpu_torch.utils.config import ColorSpace, QuantizeOptions
 
@@ -150,26 +161,31 @@ def _resolve_device(device):
     return device
 
 
-def _gq_bucket_stage(colors):
+def _gq_bucket_stage(colors, mesh=None):
     """Unweighted global PCA -> bucket sort -> per-bucket moments (K1),
-    shifted by the global mean (quirk Q1; reference global.c:407,418)."""
-    tot = M.total_moments(colors)
+    shifted by the global mean (quirk Q1; reference global.c:407,418).
+    With ``mesh``: the moments summed and the projection range reduced over
+    the ranks (JAX ``pipeline.py:1400-1416``)."""
+    tot = M.total_moments(colors, mesh=mesh)
     mean = M.moments_center(tot)
     axis, _ = eigen3.principal_axis(M.moments_cov(tot))
     proj = M.project(colors, axis)
-    buckets = M.bucketize(proj, GQ.BUCKET_COUNT, torch.min(proj),
-                          torch.max(proj))
-    bm = M.segment_moments(colors, buckets, GQ.BUCKET_COUNT, shift=mean)
+    buckets = M.bucketize(proj, GQ.BUCKET_COUNT,
+                          PM.pmin(mesh, torch.min(proj)),
+                          PM.pmax(mesh, torch.max(proj)), mesh=mesh)
+    bm = M.segment_moments(colors, buckets, GQ.BUCKET_COUNT, shift=mean,
+                           mesh=mesh)
     return buckets, bm
 
 
 def _lq_stage(colors, weights, buckets, cuts, k0, palette_size,
-              batch_splits):
+              batch_splits, mesh=None):
     labels0 = GQ.labels_from_cuts(buckets, cuts)
     labels, count = LQ.lq_quantize(colors, weights, labels0, k0,
-                                   palette_size, batch_splits=batch_splits)
+                                   palette_size, batch_splits=batch_splits,
+                                   mesh=mesh)
     centers, mass = PAL.centers_from_labels(colors, weights, labels,
-                                            palette_size)
+                                            palette_size, mesh=mesh)
     valid = (torch.arange(palette_size, device=colors.device) < count) & (
         mass > 0.0)
     return labels, count, centers, valid
@@ -263,7 +279,14 @@ def quantize(
     at each stage lap, so ``LAST_STAGE_TIMES`` holds device time (also on
     under ``verbose``).
 
-    Internal failures, and calls this slice does not cover yet, return
+    ``mesh``: a :class:`patolette_tpu_torch.parallel.mesh.Mesh`. Every rank
+    of its group calls ``quantize`` with the same arguments and the whole
+    image; each works on its own row strip on the mesh's device, and every
+    rank returns the same palette and the whole map (``_quantize_sharded``).
+    Shapes that do not divide over the ranks run the single-device routes
+    on every rank.
+
+    Internal failures return
     ``(False, None, None, "Internal quantization error. [Type: detail]")``.
     """
     try:
@@ -277,22 +300,31 @@ def quantize(
             seed=seed, mesh=mesh, device=device, sync_stages=sync_stages,
         )
     except Exception as e:  # noqa: BLE001 -- the reference's -1 surface
-        msg = errors.exit_code_message(errors.ExitCode.BAD_QUANT)
-        detail = str(e).strip().splitlines()
-        detail = detail[0] if detail else ""
-        return False, None, None, f"{msg} [{type(e).__name__}: {detail}]"
+        return typed_failure(e)
+
+
+def typed_failure(e):
+    """The reference's -1 surface for an internal failure."""
+    msg = errors.exit_code_message(errors.ExitCode.BAD_QUANT)
+    detail = str(e).strip().splitlines()
+    detail = detail[0] if detail else ""
+    return False, None, None, f"{msg} [{type(e).__name__}: {detail}]"
 
 
 def _quantize_body(width, height, colors, palette_size, *, dither,
                    palette_only, color_space, tile_size, kmeans_niter,
                    kmeans_max_samples, verbose, weights, lq_max_samples,
                    lq_batch_splits, dither_segment, seed, mesh, device,
-                   sync_stages):
+                   sync_stages, local=False):
+    """``local``: ``colors`` (and ``weights``) are only this rank's rows of
+    the image, and the map returned is theirs (``quantize_distributed``);
+    shapes that do not divide over the ranks then fail."""
     colors = np.asarray(colors)
     if colors.ndim != 2 or colors.shape[1] != 3:
         ch = colors.shape[1] if colors.ndim == 2 else colors.ndim
         return False, None, None, errors.BAD_CHANNEL_COUNT.format(ch)
-    if colors.shape[0] != width * height:
+    world = mesh.world if local else 1
+    if (width * height) % world or colors.shape[0] * world != width * height:
         return False, None, None, errors.COLOR_MISMATCH
     if tile_size < 0:
         return False, None, None, errors.BAD_TILE_SIZE
@@ -300,12 +332,25 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
     if code != errors.ExitCode.SUCCESS:
         return False, None, None, errors.exit_code_message(code)
 
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device) is not ported yet")
-    device = _resolve_device(device)
     n = width * height
     p = int(palette_size)
     dither = bool(dither) and not palette_only
+    if mesh is not None:
+        if not isinstance(mesh, PM.Mesh):
+            raise TypeError(f"mesh= takes a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
+        if local and dither and height % mesh.world:
+            raise ValueError(f"a dither needs the height ({height}) to "
+                             f"divide over {mesh.world} ranks")
+        if n % mesh.world or (dither and height % mesh.world):
+            _log(verbose, "mesh given but shapes not divisible; running "
+                          "single-device")
+            mesh = None
+    device = _resolve_device(device)
     saliency = weights is None and tile_size > 0
     timer = _StageTimer(verbose, verbose or sync_stages, device)
     csp = int(color_space)
@@ -323,15 +368,20 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
     if kmeans_niter > 0:
         m_pal = max(m_pal,
                     min(n, KM.subsample_cap(p, int(kmeans_max_samples))))
-    if (not saliency and m_pal <= SAMPLE_MAX
+    if (mesh is None and not saliency and m_pal <= SAMPLE_MAX
             and (palette_only or (lut_eligible and n >= _lut_min_pixels(p)))):
         return _quantize_via_samples(colors, p, **kw)
+
+    geometry = dict(width=int(width), height=int(height), dither=dither,
+                    dither_segment=int(dither_segment))
+    if mesh is not None:
+        return _quantize_sharded(colors, p, mesh, **geometry,
+                                 tile_size=float(tile_size), local=local,
+                                 **kw)
 
     # --- the streamed route, in the JAX package's order
     # (pipeline.py:1042-1081): large dithered calls without saliency, then
     # whatever exceeds the device budget ---
-    geometry = dict(width=int(width), height=int(height), dither=dither,
-                    dither_segment=int(dither_segment))
     if dither and not saliency and n > STRIP_DITHER_MIN_PIXELS \
             and lq_max_samples:
         return _quantize_streamed(colors, p, **geometry, **kw)
@@ -623,6 +673,165 @@ def _quantize_resident(colors, p, *, width, height, palette_only, dither,
 
     palette = _finish_palette(centers, valid, p, csp)
     timer.lap("palette-out")
+    return True, palette, palette_map, errors.exit_code_message(
+        errors.ExitCode.SUCCESS
+    )
+
+
+def _strip_saliency(strip, width, rows, tile_size, total_pixels):
+    """Saliency weights of one rank's (rows * width, 3) strip on the
+    device, its borders the strip's own, scaled by the whole image's area
+    (the JAX package's ``saliency_sharded``, ``mesh.py:150-187``); None
+    when a side is <= 3."""
+    return SAL.get_weights_planar(color_convert(strip, 0, "working"), rows,
+                                  width, tile_size, total_pixels=total_pixels)
+
+
+def _strip_dither(strip, centers, valid, width, rows, csp, segment):
+    """Dithered map of one rank's strip along its own curve with a fresh
+    queue (the JAX package's ``dither_sharded``, ``mesh.py:190-243``). The
+    strip goes from sRGB straight to linear Rec2020 for float and uint8
+    input alike (``mesh.py:210-219``), unlike the streamed route's float
+    strips."""
+    return DITH.riemersma_dither_rec2020(
+        color_convert(strip, 0, "rec2020_direct"), centers, valid, width,
+        rows, csp, segment=segment)
+
+
+def _gather_rows(mesh, rows):
+    """Every rank's (n_local, 3) rows in rank order, on every host (exact:
+    uint8 travels as int32)."""
+    kind = np.int32 if rows.dtype == np.uint8 else np.float32
+    full = PM.gather(mesh, torch.from_numpy(np.ascontiguousarray(
+        rows, dtype=kind))).numpy()
+    return full.astype(rows.dtype if rows.dtype == np.uint8 else np.float32)
+
+
+def _quantize_sharded(colors, p, mesh, *, width, height, dither,
+                      dither_segment, palette_only, csp, tile_size,
+                      kmeans_niter, kmeans_max_samples, verbose, weights,
+                      lq_max_samples, lq_batch_splits, seed, device, timer,
+                      local=False):
+    """The multi-device route (the JAX package's ``_quantize_sharded``,
+    pipeline.py:1447-1555), one process a rank. ``colors``/``weights``:
+    the whole image, or with ``local`` only this rank's rows; the map
+    returned is the whole image's, or with ``local`` this rank's rows.
+
+    Stages, with the JAX package's laps: ``stage-in`` (the strip goes up
+    where saliency, the dither or the direct map need it), ``saliency``
+    (per strip; the whole image's below a strip height of 4),
+    ``palette (sharded)`` (host draws per rank of ``ceil(cap / world)``
+    samples with replacement from the rank's rows, from a generator seeded
+    by ``(seed, rank)``; GQ moments, LQ sums, centres and KMeans sums
+    reduced over the ranks; the GQ DP on the host in f64 on every rank),
+    ``dither`` or ``nn-map``. The JAX package draws on the device with
+    ``jax.random`` and runs its f32 device DP here (README T5).
+    """
+    n = width * height
+    lo, hi = PM.shard_range(n, mesh)
+    rows = colors if local else colors[lo:hi]
+    w_host = (None if weights is None
+              else np.asarray(weights, np.float32).reshape(-1))
+    if w_host is not None and not local:
+        w_host = w_host[lo:hi]
+    saliency = weights is None and tile_size > 0
+    strip_h = height // mesh.world if height % mesh.world == 0 else 0
+    lut_route = (not palette_only and not dither
+                 and colors.dtype == np.uint8 and p <= 256
+                 and n >= _lut_min_pixels(p)
+                 and LUT.LUT_SIZE % mesh.world == 0)
+    need_strip = ((saliency and strip_h > 3)
+                  or (not palette_only and not lut_route))
+    strip = _put(rows, device) if need_strip else None
+    timer.lap("stage-in")
+
+    w_dev = None
+    if saliency:
+        if strip_h > 3:
+            _log(verbose, "Generating saliency map (per-strip)")
+            w_dev = _strip_saliency(strip, width, strip_h, tile_size, n)
+        elif height > 3 and width > 3:
+            _log(verbose, "Generating saliency map (replicated)")
+            full = _gather_rows(mesh, rows) if local else colors
+            w_all = SAL.get_weights_planar(
+                color_convert(_put(full, device), 0, "working"), height,
+                width, tile_size)
+            w_dev = w_all[lo:hi].contiguous()
+        timer.lap("saliency")
+
+    _log(verbose, "Palette generation (sharded)")
+    n_local = rows.shape[0]
+    rng = np.random.default_rng((int(seed), mesh.rank))
+
+    def draw(cap):
+        cap = PM.per_rank_cap(cap, mesh)
+        return None if not cap or n_local <= cap else rng.integers(
+            0, n_local, size=cap)
+
+    idx_lq = draw(lq_max_samples)
+    idx_km = (draw(KM.subsample_cap(p, kmeans_max_samples))
+              if kmeans_niter > 0 else None)
+    every = {}
+
+    def samples(idx):
+        """Working-space (M, 3) samples and their weights on the device:
+        the rows at ``idx``, or all of them."""
+        if idx is None and "all" in every:
+            return every["all"]
+        if idx is None:
+            x = strip if strip is not None else _put(rows, device)
+        else:
+            x = _put(rows[idx], device)
+        x = torch.stack(color_convert(x, csp, "working"), dim=-1)
+        if w_dev is not None:
+            w = w_dev if idx is None else w_dev[
+                torch.from_numpy(idx).to(device)]
+        else:
+            w = _put_weights(
+                None if w_host is None else
+                (w_host if idx is None else w_host[idx]), device)
+        if idx is None:
+            every["all"] = (x, w)
+        return x, w
+
+    x_lq, w_lq = samples(idx_lq)
+    buckets, bm = _gq_bucket_stage(x_lq, mesh)
+    cuts = GQ.gq_host(bm.to(torch.float64).cpu().numpy(), p)
+    k0 = len(cuts) - 1
+    _log(verbose, f"Base cluster count: {k0}")
+    _, _, centers, valid = _lq_stage(x_lq, w_lq, buckets, cuts, k0, p,
+                                     max(1, int(lq_batch_splits)), mesh)
+    del x_lq, w_lq, buckets
+    if kmeans_niter > 0:
+        x_km, w_km = samples(idx_km)
+        centers = KM.lloyd_iterations(x_km, w_km, centers, valid,
+                                      kmeans_niter, mesh=mesh)
+        del x_km, w_km
+    every.clear()
+    timer.lap("palette (sharded)")
+
+    palette_map = None
+    if not palette_only:
+        if lut_route:
+            _log(verbose, "NN mapping (sharded 24-bit LUT)")
+            enc, lut_slice = LUT.build_lut_enc_sharded(mesh, centers, valid,
+                                                       csp)
+            table = LUT.pull_lut_sharded(mesh, enc, lut_slice)
+            palette_map = LUT.lut_map_host(colors, table)
+        else:
+            if dither:
+                _log(verbose, "Dithering (per-strip)")
+                pm = _strip_dither(strip, centers, valid, width, strip_h,
+                                   csp, dither_segment)
+            else:
+                _log(verbose, "NN mapping")
+                pm = assign_planar(color_convert(strip, csp, "ictcp"),
+                                   cs.working_to_ictcp(centers, csp), valid)
+            del strip
+            palette_map = (pm if local else PM.gather(mesh, pm)).cpu().numpy()
+        timer.lap("dither" if dither else "nn-map")
+
+    palette = _finish_palette(centers, valid, p, csp)
     return True, palette, palette_map, errors.exit_code_message(
         errors.ExitCode.SUCCESS
     )

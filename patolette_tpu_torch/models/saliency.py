@@ -73,10 +73,15 @@ def _unit_max(x):
     return x / torch.clamp_min(x.max(), 1e-30)
 
 
-def get_weights_planar(channels, rows: int, cols: int, tile_size: float):
+def get_weights_planar(channels, rows: int, cols: int, tile_size: float,
+                       total_pixels: int | None = None):
     """Saliency weights (rows*cols,) f32 in [1, inf) of the planar sRGB
     image ``channels`` (3-tuple of (rows*cols,) or (rows, cols)), or None
-    when a side is <= 3 (pyx:203-313)."""
+    when a side is <= 3 (pyx:203-313).
+
+    ``total_pixels`` replaces ``rows * cols`` in the weight's area factor:
+    the multi-device route runs this on each rank's row strip, whose
+    weights keep the whole image's scale (JAX ``saliency.py:230-238``)."""
     rows, cols = int(rows), int(cols)
     if rows <= 3 or cols <= 3:
         return None
@@ -98,5 +103,6 @@ def get_weights_planar(channels, rows: int, cols: int, tile_size: float):
     c = 1.0 - dist * cs._f32(1.0 / cs._f32((w2**2 + h2**2) ** 0.5))
     sal = _unit_max(sal * c)
     sal = 1.0 / (1.0 + torch.exp(-10.0 * (sal - 0.5)))  # pyx:306-312
-    area = sal.reshape(-1) ** 2 * float(rows * cols)
+    area = sal.reshape(-1) ** 2 * float(
+        rows * cols if total_pixels is None else int(total_pixels))
     return 1.0 + cs._div(area, float(tile_size) ** 2)

@@ -5,6 +5,9 @@ Port of ``patolette_tpu/ops/moments.py``. The per-segment sum
 ``kernels.segment.segment_sum``; the JAX package's one-hot matmul was a TPU
 formulation and is not carried over.
 
+With ``mesh`` (``parallel/mesh.py``), each rank's partial sums are
+summed over the ranks in rank order, as the JAX package ``psum``s them.
+
 Colors are SHIFTED by a provided center before squaring, so f32
 accumulation of the translation-invariant statistics (distortion,
 covariance) does not cancel catastrophically.
@@ -21,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from patolette_tpu_torch.kernels.segment import segment_sum
+from patolette_tpu_torch.parallel import mesh as PM
 
 NUM_MOMENTS = 11
 IDX_W0 = 0
@@ -52,24 +56,25 @@ def moment_features(colors, weights=None, shift=None):
     return torch.cat([one[:, None], wx, w2, xx, yy, zz], dim=-1)
 
 
-def total_moments(colors, weights=None, shift=None):
+def total_moments(colors, weights=None, shift=None, mesh=None):
     """Single global moment tuple ``(11,)``."""
-    return torch.sum(moment_features(colors, weights, shift), dim=0)
+    return PM.psum(mesh, torch.sum(moment_features(colors, weights, shift),
+                                   dim=0))
 
 
-def segment_matmul(feats, segment_ids, num_segments):
+def segment_matmul(feats, segment_ids, num_segments, mesh=None):
     """``(N, F)`` features summed into ``(num_segments, F)`` by id (K1).
 
     Ids outside ``[0, num_segments)`` contribute nothing, as a one-hot row
     of zeros would."""
-    return segment_sum(feats, segment_ids, num_segments)
+    return PM.psum(mesh, segment_sum(feats, segment_ids, num_segments))
 
 
 def segment_moments(colors, segment_ids, num_segments, weights=None,
-                    shift=None):
+                    shift=None, mesh=None):
     """Per-segment moment tuple ``(num_segments, 11)``."""
     feats = moment_features(colors, weights, shift)
-    return segment_matmul(feats, segment_ids, num_segments)
+    return segment_matmul(feats, segment_ids, num_segments, mesh=mesh)
 
 
 # --------------------------------------------------------------------------
@@ -146,12 +151,15 @@ def bucketize_linear(proj, n_buckets, pmin, pmax):
     return linear_bin((proj - pmin) * scale, n_buckets)
 
 
-def bucketize(proj, n_buckets, pmin, pmax, delta=1e-12, mask=None):
+def bucketize(proj, n_buckets, pmin, pmax, delta=1e-12, mask=None,
+              mesh=None):
     """Linear binning into ``n_buckets`` (reference sort.c:58-92).
 
     Degenerate case (flat projection range): the reference round-robins
     buckets ``i % n_buckets`` over the input order (sort.c:61-79). With
-    ``mask``, round-robin positions count only masked entries.
+    ``mask``, round-robin positions count only masked entries. With
+    ``mesh``, ``pmin``/``pmax`` are the global ones and the positions are
+    global: offset by the (masked) counts of the lower ranks.
     Returns int32 bucket ids.
     """
     span = pmax - pmin
@@ -159,7 +167,10 @@ def bucketize(proj, n_buckets, pmin, pmax, delta=1e-12, mask=None):
     b = linear_bin((proj - pmin) * bucket_scale(span, delta), n_buckets)
     if mask is None:
         pos = torch.arange(proj.shape[0], device=proj.device)
+        local = proj.shape[0]
     else:
         pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+        local = int(mask.sum()) if mesh is not None else 0
+    pos = pos + PM.rank_offset(mesh, local)
     rr = torch.remainder(pos, n_buckets).to(torch.int32)
     return torch.where(degenerate, rr, b)

@@ -153,7 +153,7 @@ def test_grid_cache_reuse(monkeypatch):
     assert TL.grid_ictcp(2, "cpu") is grid
     built = []
 
-    def fake_build(color_space, device):
+    def fake_build(color_space, device, lo, hi):
         built.append(color_space)
         return (torch.zeros(1),) * 3
 
@@ -162,7 +162,7 @@ def test_grid_cache_reuse(monkeypatch):
     try:
         TL.grid_ictcp(1, "cpu")
         assert built == [1] and list(TL._GRID_CACHE) == [
-            (1, torch.device("cpu"))]
+            (1, torch.device("cpu"), 0, 1)]
         TL.grid_ictcp(1, "cpu")
         assert built == [1]
     finally:
