@@ -15,15 +15,28 @@ Phases, each printing one JSON line:
      kind and working space, and on all 2^24 codes; K6 on a palette's
      2^24 table and on its second quarter must equal its plain version in
      header and words and decode back to the table, and must flag an
-     alternating table; K4 with a reduction between its two halves must
-     match its plain version as without one;
+     alternating table; K6's v1 and u16 v2 formats on K5's 256- and
+     1024-colour tables and on crafted tables (one alternating 128-block;
+     the alternating table, over v1's run cap) likewise; K4 with a
+     reduction between its two halves must match its plain version as
+     without one;
+  3b. pull: the table pull (ops/lut.py::pull_lut) once for each branch
+     (u8 v2; v2 overflowed, v1; v1 over its cap, raw; u16 v2; u16 v2
+     overflowed, raw), each equal to the table bit for bit and launching
+     the K6 kernels of its branch; then the raw copy against pull_lut on
+     K5's two tables, in turns, medians, with the decode's time into a
+     fresh and into a pre-faulted host buffer;
   4. e2e: quantize() of a 4K float32 image to 256 colours with 32 KMeans
      iterations and no dither or saliency (K1-K4 and K10 must launch, two
      runs must agree bit for bit, peak device bytes per pixel at or below
      the pipeline's BYTES_PER_PIXEL), then the same pixels as uint8, which
      take the sampled LUT route (K5, K1, K2, K4, K10 must launch and K3
      must not, two runs must agree bit for bit, CIELuv MSE within 1% of
-     the float32 call's);
+     the float32 call's; the table comes back through K6's v2 words);
+  4b. e2e-u8-ramp: a 4K uint8 grey ramp of 256 levels on the same route,
+     whose table overflows v2 and comes back through K6's v1 words (K6 v1
+     must launch, K3 must not; the map equal to K3's direct map against
+     the same palette);
   5. e2e-default: the library's default call on the same image (MBD
      saliency, weighted palette, Riemersma dither; K7, K8, K9, K1, K2, K4
      and K10 must launch, two runs must agree bit for bit, the CIELuv MSE
@@ -36,8 +49,8 @@ Phases, each printing one JSON line:
      warm call, best of 3, the launch and repeat checks, CIELuv MSE on a
      fixed 1M-pixel subset, peak device memory within 10% of the 4K uint8
      call's (nothing on the device grows with N); then one call at 1024
-     colours, whose table is u16 (K5 must launch, K3 must not, the MSE
-     must be below the 256-colour call's);
+     colours, whose table is u16 (K5 and K6's u16 v2 must launch, K3 must
+     not, the MSE must be below the 256-colour call's);
   7. the streamed route: e2e-strip-dither, the 4K float32 image dithered
      without saliency on 2 row strips (K7, K8, K10, K1, K2, K4 must launch,
      K3 and K9 must not, bit-identical reruns, the dither checks of
@@ -69,7 +82,8 @@ uint8, and the host map against plain torch CPU ops and a gather on the
 card at 100 MP.
 With ``--profile`` the e2e phases (and e2e-mesh-u8) also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
-DIR`` the ptxas report and the profiler tables are written to DIR. Then
+DIR`` the ptxas report, the profiler tables and every JSON line
+(smoke.jsonl) are written to DIR. Then
 the nvidia-smi line, the kernels line and, last, the ok line. Any failed
 check raises and the script exits non-zero; without a CUDA device (or
 without the package beside it) it exits non-zero and prints no result.
@@ -117,7 +131,14 @@ PEAK_F64_FLOPS = 33.5e12
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line; with ``--out DIR`` also append it to
+    DIR/smoke.jsonl (the end of a long output may be all a caller keeps)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    out = _out_dir()
+    if out is not None:
+        with open(out / "smoke.jsonl", "a") as f:
+            f.write(line + "\n")
 
 
 def bound_ms(nbytes, flops, f64_flops=0):
@@ -430,6 +451,7 @@ def kernel_k5(torch, rows):
     torch.cuda.synchronize()
     grid_ms = (time.perf_counter() - t0) * 1e3
     n = lut.LUT_SIZE
+    tables = {}
     for p, dtype, name in ((256, torch.uint8, "lut_argmin"),
                            (1024, torch.uint16, "lut_argmin[1024]")):
         centers = _working_pixels(torch, p, 20 + p)
@@ -444,6 +466,7 @@ def kernel_k5(torch, rows):
               f"K5[{p}] differs from its plain version")
         check(torch.equal(got.to(torch.int32), direct),
               f"K5[{p}] differs from K3 on the grid")
+        tables[p] = got
         ms = time_ms(lambda: lut_argmin(grid, centers, valid, dtype))
         plain = time_ms(lambda: lut_argmin_plain(grid, centers, valid, dtype),
                         reps=3, warm=1)
@@ -466,6 +489,7 @@ def kernel_k5(torch, rows):
                          bound_by=by, grid_build_cold_ms=grid_ms))
     # the e2e phases' peak device memory counts what their calls hold
     lut.clear_grid_cache()
+    return tables
 
 
 def kernel_k6(torch, rows):
@@ -514,7 +538,95 @@ def kernel_k6(torch, rows):
         rows.append(dict(
             name="rle_encode_u8_v2" + ("" if name == "full" else "[quarter]"),
             shape=[t.shape[0]], runs=count, max_abs_err=float(diff), ms=ms,
-            plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by))
+            plain_ms=plain, library_ms=_runs_library_ms(torch, t),
+            bound_ms=b, bound_by=by))
+
+
+def _runs_library_ms(torch, t):
+    """One PyTorch call that finds the same runs: their values and lengths
+    (not K6's words). A u16 table goes in as its int16 view (the same
+    runs), the types that call takes on the card."""
+    if t.dtype == torch.uint16:
+        t = t.view(torch.int16)
+    return time_ms(lambda: torch.unique_consecutive(t, return_counts=True),
+                   reps=3, warm=1)
+
+
+def _block_table(torch, n, dtype):
+    """A table of n entries that is constant but for one 128-block that
+    alternates (64 run starts, over v2's cap of 32)."""
+    t = torch.zeros(n, dtype=dtype, device=DEV)
+    t[4096:4096 + 128] = (torch.arange(128, device=DEV) % 2 + 3).to(dtype)
+    return t
+
+
+def kernel_k6_pull(torch, rows, tables):
+    """K6's v1 (u8) and u16 v2 formats on K5's 256- and 1024-colour tables
+    and on crafted tables: header and words equal to the plain version
+    (v1: the first min(count, MAX_RUNS) words, also past its cap), the host
+    decode equal to the table; u16 v2 must flag a block over its cap."""
+    import numpy as np
+
+    from patolette_tpu_torch.kernels import rle
+    from patolette_tpu_torch.ops import lut
+
+    n = lut.LUT_SIZE
+    alt = torch.arange(n, device=DEV).remainder(2).to(torch.uint8)
+    cases = (
+        ("rle_encode_u8", tables[256], rle.rle_encode_u8,
+         rle.rle_encode_u8_plain),
+        ("rle_encode_u8[block]", _block_table(torch, n, torch.uint8),
+         rle.rle_encode_u8, rle.rle_encode_u8_plain),
+        ("rle_encode_u8[alternating]", alt, rle.rle_encode_u8,
+         rle.rle_encode_u8_plain),
+        ("rle_encode_u16_v2", tables[1024], rle.rle_encode_u16_v2,
+         rle.rle_encode_u16_v2_plain),
+        ("rle_encode_u16_v2[block]", _block_table(torch, n, torch.uint16),
+         rle.rle_encode_u16_v2, rle.rle_encode_u16_v2_plain),
+    )
+    for name, t, fn, plain_fn in cases:
+        enc = fn(t)
+        twin = plain_fn(t)
+        torch.cuda.synchronize()
+        host = t.cpu().numpy()
+        if t.dtype == torch.uint8:
+            hdr, count = 1, rle.header_v1(enc)
+            over = count > rle.MAX_RUNS
+            check(rle.header_v1(twin) == count,
+                  f"{name}: count {count} against {rle.header_v1(twin)}")
+            n_words = min(count, rle.MAX_RUNS)
+            out_bytes = 4 * (1 + n_words)
+        else:
+            hdr, (count, over) = 2, rle.header_u16_v2(enc)
+            check(rle.header_u16_v2(twin) == (count, over),
+                  f"{name}: header {(count, over)} against "
+                  f"{rle.header_u16_v2(twin)}")
+            n_words = 0 if over else count
+            out_bytes = 4 * (2 + count)
+        words = enc[hdr:hdr + n_words].cpu().numpy()
+        diff = int((words != twin[hdr:hdr + n_words].cpu().numpy()).sum())
+        check(diff == 0, f"{name}: {diff} words differ")
+        if name == "rle_encode_u8[block]":
+            check(count == 130 and not over, f"{name}: count {count}")
+        if name == "rle_encode_u8[alternating]":
+            check(count == n and over, f"{name}: count {count}")
+        if name == "rle_encode_u16_v2[block]":
+            check(over, f"{name}: overflow not flagged")
+        if not over:
+            if t.dtype == torch.uint8:
+                dec = lut.rle_decode_u8(words, np.empty(n, np.uint8))
+            else:
+                dec = lut.rle_decode_u16_v2(words, np.empty(n, np.uint16))
+            check(np.array_equal(dec, host),
+                  f"{name}: decode differs from the table")
+        ms = time_ms(lambda: fn(t))
+        plain = time_ms(lambda: plain_fn(t), reps=3, warm=1)
+        b, by = bound_ms(t.numel() * t.element_size() + out_bytes, 0)
+        rows.append(dict(
+            name=name, shape=[n], out_dtype=str(t.dtype), runs=count,
+            overflow=over, max_abs_err=float(diff), ms=ms, plain_ms=plain,
+            library_ms=_runs_library_ms(torch, t), bound_ms=b,
+            bound_by=by))
 
 
 def kernel_k7(torch, rows):
@@ -752,15 +864,131 @@ def phase_kernels(torch):
     kernel_k3(torch, rows)
     kernel_k4(torch, rows)
     kernel_k4_large(torch, rows)
-    kernel_k5(torch, rows)
+    tables = kernel_k5(torch, rows)
     kernel_k6(torch, rows)
+    kernel_k6_pull(torch, rows, tables)
     kernel_k7(torch, rows)
     kernel_k8(torch, rows)
     kernel_k9(torch, rows)
     kernel_k10(torch, rows)
     for r in rows:
         emit(dict(phase="kernel", **r))
-    return rows
+    return rows, tables
+
+
+def _pull_stages(torch, t):
+    """Where pull_lut's time goes on a table whose first format does not
+    overflow: medians of the encode (to its end on the card), the header
+    read, the copy of the words, the host buffer's allocation and the
+    decode into that fresh buffer, each on the host clock, PULL_PAIRS
+    times; beside them the same decode into a buffer whose pages were
+    touched first (``decode_prefaulted``) and the words' copy into such a
+    buffer of the table's size from the card (``raw_prefaulted``), which
+    separate the decode's own work from the first touch of its pages."""
+    import numpy as np
+
+    from patolette_tpu_torch.kernels import rle
+    from patolette_tpu_torch.ops import lut
+
+    if t.dtype == torch.uint8:
+        encode, read, hdr = rle.rle_encode_u8_v2, rle.header, 3
+        decode, dtype = lut.rle_decode_u8_v2, np.uint8
+    else:
+        encode, read, hdr = rle.rle_encode_u16_v2, rle.header_u16_v2, 2
+        decode, dtype = lut.rle_decode_u16_v2, np.uint16
+    names = ("encode", "header", "words", "alloc", "decode")
+    stages = {k: [] for k in names + ("decode_prefaulted", "raw_prefaulted")}
+    for _ in range(PULL_PAIRS):
+        torch.cuda.synchronize()
+        ts = [time.perf_counter()]
+        enc = encode(t)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter())
+        count, over = read(enc)
+        ts.append(time.perf_counter())
+        check(not over, "pull stages: the table overflows")
+        words = enc[hdr:hdr + count].cpu().numpy()
+        ts.append(time.perf_counter())
+        buf = np.empty((t.shape[0],), dtype)
+        ts.append(time.perf_counter())
+        decode(words, buf)
+        ts.append(time.perf_counter())
+        for k, a, b in zip(names, ts, ts[1:]):
+            stages[k].append((b - a) * 1e3)
+        warm = np.empty((t.shape[0],), dtype)
+        warm.fill(1)
+        t0 = time.perf_counter()
+        decode(words, warm)
+        stages["decode_prefaulted"].append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(warm, buf), "pull stages: decodes differ")
+        warm_t = torch.from_numpy(warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm_t.copy_(t)
+        stages["raw_prefaulted"].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in stages.items()}
+
+
+# pull_lut's branches: table -> the K6 kernels it must launch, in order
+PULL_BRANCHES = (
+    ("u8-v2", ("rle_encode_u8_v2",)),
+    ("u8-v1", ("rle_encode_u8_v2", "rle_encode_u8")),
+    ("u8-raw", ("rle_encode_u8_v2", "rle_encode_u8")),
+    ("u16-v2", ("rle_encode_u16_v2",)),
+    ("u16-raw", ("rle_encode_u16_v2",)),
+)
+PULL_PAIRS = 10
+
+
+def phase_pull(torch, tables):
+    """The table pull (``ops/lut.py::pull_lut``) on device tables, one for
+    each branch: K5's 256-colour table (u8 v2), the one-block table (v2
+    overflows, v1), the alternating table (v1 over its cap, raw), K5's
+    1024-colour table (u16 v2), the one-block u16 table (raw). Each pull
+    must equal the table bit for bit and launch the K6 kernels of its
+    branch and no other. Then the raw copy (``.cpu()``) against pull_lut
+    on K5's two tables, in turns (raw, pull, raw, pull, ...), medians."""
+    from patolette_tpu_torch import kernels
+    from patolette_tpu_torch.ops import lut
+
+    n = lut.LUT_SIZE
+    k6 = ("rle_encode_u8_v2", "rle_encode_u8", "rle_encode_u16_v2")
+    inputs = {
+        "u8-v2": tables[256],
+        "u8-v1": _block_table(torch, n, torch.uint8),
+        "u8-raw": torch.arange(n, device=DEV).remainder(2).to(torch.uint8),
+        "u16-v2": tables[1024],
+        "u16-raw": _block_table(torch, n, torch.uint16),
+    }
+    out = {"phase": "pull", "branches": {}}
+    launches = {}
+    for branch, expect in PULL_BRANCHES:
+        t = inputs[branch]
+        kernels.reset_launches()
+        got = lut.pull_lut(t)
+        launched = {k: kernels.LAUNCHES[k] for k in k6}
+        launches[branch] = dict(kernels.LAUNCHES)
+        check(got.dtype == t.cpu().numpy().dtype
+              and (got == t.cpu().numpy()).all(),
+              f"pull {branch}: the table differs")
+        check(launched == {k: int(k in expect) for k in k6},
+              f"pull {branch}: launched {launched}")
+        out["branches"][branch] = launched
+    for p, t in ((256, tables[256]), (1024, tables[1024])):
+        raw, enc = [], []
+        for _ in range(PULL_PAIRS):
+            for times, fn in ((raw, lambda: t.cpu().numpy()),
+                              (enc, lambda: lut.pull_lut(t))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[f"p{p}"] = {"raw_ms": raw, "pull_lut_ms": enc,
+                        "raw_median_ms": statistics.median(raw),
+                        "pull_lut_median_ms": statistics.median(enc),
+                        "pull_lut_stages_median_ms": _pull_stages(torch, t)}
+    emit(out)
+    return {"pull-" + b: v for b, v in launches.items()}
 
 
 def synth_image_f32(w, h, seed=0, tile=1000):
@@ -876,8 +1104,8 @@ def _profile_call(torch, call, name):
 # Kernels each path must launch (names of kernels.LAUNCHES).
 MAIN_PATH_KERNELS = ("segment_sum", "lq_candidates", "assign_planar",
                      "kmeans_step", "color_convert")
-U8_LUT_KERNELS = ("lut_argmin", "segment_sum", "lq_candidates",
-                  "kmeans_step", "color_convert")
+U8_LUT_KERNELS = ("lut_argmin", "rle_encode_u8_v2", "segment_sum",
+                  "lq_candidates", "kmeans_step", "color_convert")
 DEFAULT_PATH_KERNELS = ("hilbert_keys", "dither_scan", "mbd", "segment_sum",
                         "lq_candidates", "kmeans_step", "color_convert")
 STRIP_DITHER_KERNELS = ("hilbert_keys", "dither_scan", "color_convert",
@@ -1010,6 +1238,67 @@ def phase_e2e(torch, profile=False):
             stats8["peak_device_bytes"], mse)
 
 
+def _ramp_u8(w, h):
+    """A w x h uint8 grey ramp of 256 levels, every row the same: its
+    palette is the 256 greys, whose 2^24 table changes entry more than 32
+    times in some 128-block (v2 overflows) and in under MAX_RUNS runs in
+    all (v1 holds it)."""
+    import numpy as np
+
+    v = (np.arange(w) * 256 // w).astype(np.uint8)
+    return np.repeat(np.tile(v, h)[:, None], 3, axis=1)
+
+
+def phase_e2e_u8_ramp(torch):
+    """A 4K uint8 grey ramp on the sampled LUT route: its table overflows
+    v2, so pull_lut takes v1 (K6 v1 must launch, as must K5, K6 v2, K1,
+    K2, K4 and K10, and K3 must not); the map equals K3's direct map
+    against the same palette bit for bit."""
+    import numpy as np
+
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch.kernels.colorspace import color_convert
+    from patolette_tpu_torch.models import pipeline
+    from patolette_tpu_torch.ops import colorspace as cs
+    from patolette_tpu_torch.ops.assign import assign_planar
+
+    w, h, p = W, H, 256
+    img = _ramp_u8(w, h)
+    kw = dict(dither=False, tile_size=0, kmeans_niter=32,
+              color_space=pt.ColorSpace_ICtCp)
+
+    def run(colors, **extra):
+        ok, pal, pmap, msg = pt.quantize(w, h, colors, p, **kw, **extra)
+        check(ok, f"ramp quantize failed: {msg}")
+        return pal, pmap
+
+    pal, pmap, stats = _drive(torch, run, img,
+                              U8_LUT_KERNELS + ("rle_encode_u8",),
+                              "the uint8 ramp")
+    check(stats["launches"]["assign_planar"] == 0,
+          "K3 launched on the uint8 ramp")
+    check("lut-map-host" in stats["stage_ms"], "the ramp missed the route")
+    used = _check_outputs(pal, pmap, p, w * h)
+    dev = torch.device(DEV, torch.cuda.current_device())
+    centers, valid = pipeline._sample_palette(
+        img, p, csp=2, kmeans_niter=32, kmeans_max_samples=512 ** 2,
+        verbose=False, weights=None, lq_max_samples=1 << 18,
+        lq_batch_splits=8, seed=1234, device=dev,
+        timer=pipeline._StageTimer(False, False, dev))
+    check(np.array_equal(pipeline._finish_palette(centers, valid, p, 2),
+                         pal), "the ramp's palette differs")
+    direct = assign_planar(color_convert(pipeline._put(img, dev), 2, "ictcp"),
+                           cs.working_to_ictcp(centers, 2),
+                           valid).cpu().numpy()
+    mismatches = int((direct != pmap).sum())
+    check(mismatches == 0,
+          f"ramp map differs from K3's direct map on {mismatches} pixels")
+    emit({"phase": "e2e-u8-ramp", "shape": [w, h], "palette": p,
+          "kmeans_niter": 32, **stats, "palette_used": used,
+          "direct_map_mismatches": mismatches, "bit_identical_runs": True})
+    return stats["launches"]
+
+
 def phase_e2e_headline(torch, peak_4k):
     """bench.py's headline call through the port: 100 MP uint8, 256
     colours, 25 KMeans iterations, ICtCp, no dither or saliency."""
@@ -1091,6 +1380,9 @@ def phase_e2e_headline(torch, peak_4k):
     launches16 = dict(kernels.LAUNCHES)
     check(launches16["lut_argmin"] > 0 and launches16["assign_planar"] == 0,
           "the 1024-colour call missed the sampled LUT route")
+    check(launches16["rle_encode_u16_v2"] > 0
+          and launches16["rle_encode_u8_v2"] == 0,
+          "the 1024-colour call did not pull its table through u16 v2")
     laps16 = dict(pipeline.LAST_STAGE_TIMES)
     check("lut-map-host" in laps16, "the 1024-colour call missed the route")
     _check_outputs(pal16, pmap16, p16, w * h)
@@ -1474,7 +1766,7 @@ def phase_e2e_over_budget(torch, mse_resident):
     return stats["launches"]
 
 
-MESH_U8_KERNELS = ("color_convert", "lut_argmin", "rle_encode",
+MESH_U8_KERNELS = ("color_convert", "lut_argmin", "rle_encode_u8_v2",
                    "segment_sum", "lq_candidates", "kmeans_step")
 MESH_F32_KERNELS = ("color_convert", "assign_planar", "segment_sum",
                     "lq_candidates", "kmeans_step")
@@ -1626,7 +1918,7 @@ def phase_e2e_mesh(torch, img_100mp, mse_headline, profile=False):
         # 4K float32, undithered: K10 + K3 on the strip
         pal, pmap, st = _drive(torch, run, img, MESH_F32_KERNELS,
                                "the mesh float32 call")
-        check(st["launches"]["rle_encode"] == 0, "K6 on the float call")
+        check(st["launches"]["rle_encode_u8_v2"] == 0, "K6 on the float call")
         check(set(st["stage_ms"]) == MESH_LAPS, f"laps {st['stage_ms']}")
         _check_outputs(pal, pmap, p, w * h)
         mse = _mse_luv(torch, img, pal, pmap)[0]
@@ -1902,15 +2194,19 @@ SOURCES = {
     "color_convert": ("patolette_tpu_torch/csrc/colorspace.cu",
                       "patolette_tpu/ops/colorspace.py:353", "main"),
     "rle_encode_u8_v2": ("patolette_tpu_torch/csrc/rle.cu",
-                         "patolette_tpu/ops/lut.py:206", "mesh-u8"),
+                         "patolette_tpu/ops/lut.py:206", "u8-lut"),
+    "rle_encode_u8": ("patolette_tpu_torch/csrc/rle.cu",
+                      "patolette_tpu/ops/lut.py:187", "u8-lut-v1"),
+    "rle_encode_u16_v2": ("patolette_tpu_torch/csrc/rle.cu",
+                          "patolette_tpu/ops/lut.py:270", "u16-lut"),
 }
-# row name -> its kernels.LAUNCHES key, where they differ
-LAUNCH_KEYS = {"rle_encode_u8_v2": "rle_encode"}
 
 
 # kernel rows of another instantiation, counted on the path that runs it
 ROW_PATHS = {"lut_argmin[1024]": "u16-lut",
              "rle_encode_u8_v2[quarter]": "mesh4-u8",
+             "rle_encode_u8[alternating]": "pull-u8-raw",
+             "rle_encode_u16_v2[block]": "pull-u16-raw",
              **{row[0]: row[4] for row in K10_ROWS}}
 ROW_REPLACES = {row[0]: row[5] for row in K10_ROWS}
 
@@ -1936,12 +2232,16 @@ def main():
 
     info = phase_device(torch)
     phase_build()
-    rows = phase_kernels(torch)
+    rows, tables = phase_kernels(torch)
+    pull_launches = phase_pull(torch, tables)
+    del tables
     profile = "--profile" in sys.argv[1:]
     main_launches, u8_launches, peak_u8, mse_resident = phase_e2e(
         torch, profile=profile)
     launches = {"main": main_launches, "u8-lut": u8_launches,
-                "default": phase_e2e_default(torch, profile=profile)}
+                "u8-lut-v1": phase_e2e_u8_ramp(torch),
+                "default": phase_e2e_default(torch, profile=profile),
+                **pull_launches}
     img_100mp, launches["u16-lut"], mse_headline = phase_e2e_headline(
         torch, peak_u8)
     launches["strip-dither"] = phase_e2e_strip_dither(torch, profile=profile)
@@ -1963,7 +2263,7 @@ def main():
         line.append({
             "name": r["name"], "route": "cuda", "source": src,
             "replaces": ROW_REPLACES.get(r["name"], replaces),
-            "launches": launches[path][LAUNCH_KEYS.get(key, key)],
+            "launches": launches[path][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -16,6 +16,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
+
 #define PT_EXPORT extern "C" __attribute__((visibility("default")))
 
 namespace {
@@ -109,8 +111,50 @@ PT_EXPORT int pt_rle_decode_u8_v2(const uint16_t* words, long long count,
       if (d < 1) return 2;
       next = start + d;
     }
-    if (next > size) return 2;
+    if (next > size || next <= start) return 2;
     memset(out + start, words[i] & 0xFF, (size_t)(next - start));
+    start = next;
+  }
+  return 0;
+}
+
+// words: (count,) u32 run words w_i = (pos_i << 8) | value_i (K6's v1
+// format without its header), pos_0 = 0 and positions strictly ascending;
+// out: (size,) u8. Run i fills [pos_i, pos_{i+1}) with pos_count = size
+// (counterpart of the JAX package's native rle_decode_u8). Returns 0, or 2
+// for words that do not describe a (size,) table. A one-entry run of 255 at
+// 2^24 - 1 has the word 0xFFFFFFFF, a run like any other.
+PT_EXPORT int pt_rle_decode_u8(const uint32_t* words, long long count,
+                               uint8_t* out, long long size) {
+  if (count < 1 || (words[0] >> 8) != 0) return 2;
+  for (long long i = 0; i < count; ++i) {
+    const long long start = words[i] >> 8;
+    const long long next = i + 1 < count ? (long long)(words[i + 1] >> 8)
+                                         : size;
+    if (next <= start || next > size) return 2;
+    memset(out + start, words[i] & 0xFF, (size_t)(next - start));
+  }
+  return 0;
+}
+
+// words: (count,) u32 run words w_i = (delta_i << 16) | value_i (K6's u16
+// v2 format without its header), delta_0 = 0; out: (size,) u16. As
+// pt_rle_decode_u8_v2 for u16 entries (counterpart of the JAX package's
+// native rle_decode_u16_v2). Returns 0, or 2 for words that do not describe
+// a (size,) table.
+PT_EXPORT int pt_rle_decode_u16_v2(const uint32_t* words, long long count,
+                                   uint16_t* out, long long size) {
+  if (count < 1 || (words[0] >> 16) != 0) return 2;
+  long long start = 0;
+  for (long long i = 0; i < count; ++i) {
+    long long next = size;
+    if (i + 1 < count) {
+      const long long d = words[i + 1] >> 16;
+      if (d < 1) return 2;
+      next = start + d;
+    }
+    if (next > size || next <= start) return 2;
+    std::fill(out + start, out + next, (uint16_t)(words[i] & 0xFFFF));
     start = next;
   }
   return 0;

@@ -13,7 +13,9 @@ LAUNCHES = {
     "assign_planar": 0,
     "kmeans_step": 0,
     "lut_argmin": 0,
-    "rle_encode": 0,
+    "rle_encode_u8_v2": 0,
+    "rle_encode_u8": 0,
+    "rle_encode_u16_v2": 0,
     "hilbert_keys": 0,
     "dither_scan": 0,
     "mbd": 0,

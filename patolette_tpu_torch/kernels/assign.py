@@ -30,10 +30,17 @@ def assign_planar_plain(channels, centers, valid):
     ca, cb, cc, c2 = (tab[:, i] for i in range(4))
     n = a.shape[0]
     out = torch.empty((n,), dtype=torch.int32, device=a.device)
+    invalid = ~valid[None, :]
     for s in range(0, n, _CHUNK):
         xa, xb, xc = (v[s:s + _CHUNK, None] for v in (a, b, c))
-        d = c2[None, :] - 2.0 * ((xa * ca + xb * cb) + xc * cc)
-        d = torch.where(valid[None, :], d, torch.inf)
+        # c2 - 2 ((xa ca + xb cb) + xc cc), each op rounded in this order,
+        # in place (three (chunk, K) buffers, not eight)
+        d = xa * ca
+        d += xb * cb
+        d += xc * cc
+        d *= 2.0
+        torch.sub(c2[None, :], d, out=d)
+        d.masked_fill_(invalid, torch.inf)
         out[s:s + _CHUNK] = torch.argmin(d, dim=1).to(torch.int32)
     return out
 

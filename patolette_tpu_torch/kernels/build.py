@@ -12,7 +12,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises when it is not 0.
 
 The host half of the LUT route (``csrc/lut_map.cpp``, plain C++ on POSIX
-threads: the map, and the decode of K6's encoded slices) is built the same way by the host C++ compiler into
+threads: the map, and the decode of K6's run words) is built the same way by the host C++ compiler into
 ``build/host/<hash>/`` (:func:`host_library`); it runs on the CPU too, so
 the tests reach it.
 """
@@ -55,6 +55,8 @@ SIGNATURES = {
     "pt_lut_argmin": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
     "pt_color_convert": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
     "pt_rle_encode_u8_v2": (_P, _I, _P, _P, _P, _P, _L, _P),
+    "pt_rle_encode_u8": (_P, _I, _P, _P, _P, _L, _P),
+    "pt_rle_encode_u16_v2": (_P, _I, _P, _P, _P, _P, _L, _P),
 }
 
 HOST_SOURCE = "lut_map.cpp"
@@ -64,6 +66,8 @@ HOST_LIB_NAME = "libpatolette_host.so"
 HOST_SIGNATURES = {
     "pt_lut_map": (_P, _L, _P, _I, _P, _I),
     "pt_rle_decode_u8_v2": (_P, _L, _P, _L),
+    "pt_rle_decode_u8": (_P, _L, _P, _L),
+    "pt_rle_decode_u16_v2": (_P, _L, _P, _L),
 }
 
 _lock = threading.Lock()

@@ -502,7 +502,8 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
     for GQ/LQ; the reference's own KMeans cap, refine.c:87), so only those
     go to the device. The palette map of a uint8 image factors through the
     2^24 possible colours (``ops/lut.py``): K5 builds one table, it comes
-    back in one raw copy, and the host resolves every pixel. The JAX package's staged variant
+    back run-length encoded (K6 and the host decode, ``LUT.pull_lut``),
+    and the host resolves every pixel. The JAX package's staged variant
     (pipeline.py:563-614); its single-program variant is not ported
     (README divergence T3).
     """
@@ -519,7 +520,7 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
         _log(verbose, "NN mapping (24-bit LUT)")
         table = LUT.build_lut_device(centers, valid, csp, LUT.lut_dtype(p))
         timer.lap("lut-build")
-        table = table.cpu()
+        table = LUT.pull_lut(table)
         timer.lap("lut-build+pull")
         palette_map = LUT.lut_map_host(colors, table)
         timer.lap("lut-map-host")

@@ -1,0 +1,95 @@
+"""The port against the JAX package's default route for small images.
+
+For n <= 2^22 pixels, with no mesh and off the sampled route, the JAX
+package runs ``_quantize_one_shot``: one program that draws its LQ and
+KMeans samples with ``jax.random`` and runs the f32 device GQ DP. The port
+has one resident route, modelled on the JAX staged route
+(``_quantize_full_upload``): numpy draws and the host f64 DP (README T6).
+These tests run with no routing variable set, on the 520x512 image of
+``test_torch_pipeline.py::test_large_image_against_jax_staged`` (266,240
+px, above the 2^18 LQ cap, so both sides draw).
+
+Bounds (CIELuv MSE of ``palette[map]`` against the image):
+  * the two undithered calls (``dither=False, tile_size=0``, ICtCp, 64
+    colours, ``kmeans_niter`` 0 and 8): port / one-shot <= 1.01, as T1
+    and T5 are held. Readings with the suite's settings (x64, 8 CPU
+    devices): 1.0002 and 1.0062; without x64 0.993 and 0.992.
+  * the library's default call (saliency, dither): held relative to the
+    JAX package's own spread between its two routes. port / one-shot must
+    be <= 1.01 x (JAX staged / one-shot), and <= 1.05 outright. Readings:
+    port / one-shot 1.0253, JAX staged / one-shot 1.0248, port / JAX
+    staged 1.0005. The one-shot route's dithered MSE is 2.5% lower than
+    the staged route's (ROADMAP queue 3 asks which of its stages gives
+    that).
+"""
+
+import numpy as np
+import pytest
+
+import patolette_tpu as jpt
+import patolette_tpu_torch as tpt
+from patolette_tpu.models import pipeline as JP
+from patolette_tpu.ops import colorspace as JCS
+
+W, H, P = 520, 512, 64
+
+
+def _large_image(w=W, h=H, seed=3):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.stack(
+        [
+            0.5 + 0.45 * np.sin(xx / 23.0) * np.cos(yy / 31.0),
+            0.5 + 0.45 * np.cos(xx / 41.0 + yy / 57.0),
+            np.clip(yy / h + 0.06 * rng.standard_normal((h, w)), 0, 1),
+        ],
+        axis=-1,
+    )
+    return np.clip(img, 0, 1).reshape(-1, 3)
+
+
+def _mse_luv(colors, palette, pmap):
+    a = np.asarray(JCS.srgb_to_cieluv(colors))
+    b = np.asarray(JCS.srgb_to_cieluv(palette))[pmap]
+    return float(((a - b) ** 2).sum(-1).mean())
+
+
+@pytest.fixture(autouse=True)
+def _default_routing(monkeypatch):
+    for name in ("PATOLETTE_NO_ONE_SHOT", "PATOLETTE_NO_FUSED_LUT",
+                 "PATOLETTE_FUSED_IMAGE_LUT"):
+        monkeypatch.delenv(name, raising=False)
+
+
+def _jax_one_shot(x, **kw):
+    ok, pal, pmap, msg = jpt.quantize(W, H, x, P, **kw)
+    assert ok, msg
+    assert "one-shot" in JP.LAST_STAGE_TIMES, JP.LAST_STAGE_TIMES
+    return _mse_luv(x, pal, pmap)
+
+
+def _port(x, **kw):
+    ok, pal, pmap, msg = tpt.quantize(W, H, x, P, device="cpu", **kw)
+    assert ok, msg
+    return _mse_luv(x, pal, pmap)
+
+
+@pytest.mark.parametrize("niter", [0, 8])
+def test_undithered_against_jax_one_shot(niter):
+    x = _large_image()
+    kw = dict(dither=False, tile_size=0, kmeans_niter=niter,
+              color_space=tpt.ColorSpace_ICtCp)
+    assert _port(x, **kw) / _jax_one_shot(x, **kw) <= 1.01
+
+
+def test_default_call_against_jax_one_shot(monkeypatch):
+    x = _large_image()
+    port = _port(x)
+    one_shot = _jax_one_shot(x)
+    monkeypatch.setenv("PATOLETTE_NO_ONE_SHOT", "1")
+    ok, jpal, jmap, msg = jpt.quantize(W, H, x, P)
+    assert ok, msg
+    staged = _mse_luv(x, jpal, jmap)
+    ratio, spread = port / one_shot, staged / one_shot
+    assert ratio <= 1.01 * spread, (ratio, spread)
+    assert ratio <= 1.05, ratio
