@@ -19,7 +19,14 @@ Phases, each printing one JSON line:
      1024-colour tables and on crafted tables (one alternating 128-block;
      the alternating table, over v1's run cap) likewise; K4 with a
      reduction between its two halves must match its plain version as
-     without one;
+     without one. K1 is timed at GQ's 512x11, the palette's 256x4 and the
+     LQ loop's 16x11 and 12x4 (id S: no candidate), K4 at P = 256 and
+     P_LARGE (their per-launch device times come in the split phase, 10);
+     K1 and K4 also run adversarial inputs
+     (kernel-adversarial lines: equal, sorted and out-of-range ids,
+     ragged and tiny N, S = 1, F = 1 and 32, segment tiles, the in-launch
+     and the second-launch sums bit for bit; K4 at P = 1, every sample
+     nearest one centre, zero weights, exact ties);
   3b. pull: the table pull (ops/lut.py::pull_lut) once for each branch
      (u8 v2; v2 overflowed, v1; v1 over its cap, raw; u16 v2; u16 v2
      overflowed, raw), each equal to the table bit for bit and launching
@@ -75,11 +82,19 @@ Phases, each printing one JSON line:
      1's, the default call's dither checks and its MSE within
      MESH4_DEFAULT_RATIO of world 1's at each seed of MESH4_SEEDS (the
      call without saliency is reported beside them);
-  9. golden: the 96x64 inputs against tests/golden/quantize_golden.npz.
+  9. golden: the 96x64 inputs against tests/golden/quantize_golden.npz;
+ 10. split: K1 and K4 alone at the kernels phase's shapes, each launch's
+     device time (torch.profiler) and the enqueue rate, index_add_ beside
+     K1; last, because a traced process pays CUPTI's cost on every later
+     launch.
 With ``--routes`` (a measurement, not a check) it then times the sampled
 LUT route against the resident route (direct map) at 4, 8.3 and 33 MP
 uint8, and the host map against plain torch CPU ops and a gather on the
 card at 100 MP.
+With ``--split`` it runs only the device, build and split phases, and
+with ``--root DIR`` on the kernels of the checkout at DIR (a parent's,
+unpacked with git archive), so two versions can be timed in turns in one
+call.
 With ``--profile`` the e2e phases (and e2e-mesh-u8) also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
 DIR`` the ptxas report, the profiler tables and every JSON line
@@ -94,6 +109,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -149,6 +165,23 @@ def bound_ms(nbytes, flops, f64_flops=0):
     t_ops = (flops / PEAK_F32_FLOPS + f64_flops / PEAK_F64_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def enqueue_ms(fn, calls=100):
+    """ms a call of ``calls`` back-to-back calls between two CUDA events:
+    the host's enqueue rate where it is slower than the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def time_ms(fn, reps=10, warm=2):
@@ -220,7 +253,7 @@ def phase_build():
     if out_dir is not None and log.exists():
         (out_dir / "ptxas.log").write_text(log.read_text())
     emit({"phase": "build", "seconds": round(secs, 3),
-          "library": str(build.build().relative_to(ROOT)),
+          "library": str(build.build()),
           "ptxas": ptxas[:16]})
 
 
@@ -233,40 +266,164 @@ def _working_pixels(torch, n, seed):
     return cs.srgb_to_working(base, 2).contiguous()
 
 
+def _kernel_name(key):
+    """A profiler kernel name without its return type, namespace, template
+    and arguments: ``void (anonymous namespace)::f<true>(float*)`` ->
+    ``f``."""
+    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.split(r"[(<]", name, maxsplit=1)[0].strip() or key
+
+
+def launch_split(torch, fn, reps=20):
+    """Device time of each kernel a wrapper call launches (torch.profiler's
+    CUDA activity, averaged over ``reps`` warm calls): {kernel: [launches
+    a call, ms a call]}, and the kernels' sum; None when the profiler shows
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")) or \
+                e.key.startswith("Activity Buffer"):
+            continue
+        name = _kernel_name(e.key)
+        launches, ms = split.get(name, (0.0, 0.0))
+        split[name] = (launches + e.count / reps,
+                       ms + e.self_device_time_total / 1e3 / reps)
+    if not split:
+        return None
+    return {"kernels": {k: [v[0], v[1]] for k, v in sorted(split.items())},
+            "device_ms": sum(v[1] for v in split.values())}
+
+
+# K1's rows: (S, F, ids drawn from [0, hi)): GQ's buckets, the palette's
+# centres, and the LQ loop's candidate passes (pass 2 every round at S =
+# 2 lq_batch_splits = 16, pass 1 on the first call at S = 12), where id S
+# means "no candidate" (out of range, dropped).
+K1_SHAPES = ((512, 11, 512), (256, 4, 256), (16, 11, 17), (12, 4, 13))
+
+
+def _k1_feats(torch, x, f):
+    from patolette_tpu_torch.ops import moments as M
+
+    n = x.shape[0]
+    if f == 11:
+        return M.moment_features(x, shift=x.mean(0)).contiguous()
+    return torch.cat([torch.ones((n, 1), device=DEV), x], 1).contiguous()
+
+
+def _k1_check(torch, feats, ids, s, what):
+    """K1 against its plain version (a few ulps of sum |x|) and itself."""
+    from patolette_tpu_torch.kernels.segment import (segment_sum,
+                                                     segment_sum_plain)
+
+    got = segment_sum(feats, ids, s)
+    twin = segment_sum_plain(feats, ids, s)
+    again = segment_sum(feats, ids, s)
+    torch.cuda.synchronize()
+    check(got.shape == (s, feats.shape[1]), f"K1 {what}: shape")
+    err = float((got - twin).abs().max())
+    # f32 sums of up to n terms in two orders: a few ulps of sum |x|
+    tol = 1e-5 * float(segment_sum_plain(feats.abs(), ids, s).max())
+    check(err <= tol, f"K1 {what} deviates {err} > {tol}")
+    check(torch.equal(got, again), f"K1 {what} not deterministic")
+    return got, err, tol
+
+
 def kernel_k1(torch, rows):
     from patolette_tpu_torch.kernels.segment import (segment_sum,
                                                      segment_sum_plain)
-    from patolette_tpu_torch.ops import moments as M
 
     n = N_SAMPLES
     x = _working_pixels(torch, n, 1)
-    for s, f in ((512, 11), (256, 4)):
+    for s, f, hi in K1_SHAPES:
         g = torch.Generator(device=DEV).manual_seed(s)
-        ids = torch.randint(0, s, (n,), generator=g, device=DEV,
+        ids = torch.randint(0, hi, (n,), generator=g, device=DEV,
                             dtype=torch.int32)
-        if f == 11:
-            feats = M.moment_features(x, shift=x.mean(0)).contiguous()
-        else:
-            feats = torch.cat([torch.ones((n, 1), device=DEV), x],
-                              1).contiguous()
-        got = segment_sum(feats, ids, s)
-        twin = segment_sum_plain(feats, ids, s)
-        again = segment_sum(feats, ids, s)
-        torch.cuda.synchronize()
-        err = float((got - twin).abs().max())
-        # f32 sums of n/S terms in two orders: a few ulps of sum |x|
-        tol = 1e-5 * float(segment_sum_plain(feats.abs(), ids, s).max())
-        check(err <= tol, f"K1 ({s},{f}) deviates {err} > {tol}")
-        check(torch.equal(got, again), f"K1 ({s},{f}) not deterministic")
+        feats = _k1_feats(torch, x, f)
+        _, err, tol = _k1_check(torch, feats, ids, s, f"({s},{f})")
         ms = time_ms(lambda: segment_sum(feats, ids, s))
         plain = time_ms(lambda: segment_sum_plain(feats, ids, s))
         idsl = ids.long()
-        lib = time_ms(lambda: torch.zeros((s, f), device=DEV).index_add_(
-            0, idsl, feats))
-        b, by = bound_ms(n * f * 4 + n * 4 + s * f * 4, n * f)
+        keep = ids < s
+        idsk, featsk = idsl[keep], feats[keep].contiguous()
+        def library():
+            return torch.zeros((s, f), device=DEV).index_add_(0, idsk,
+                                                              featsk)
+
+        lib = time_ms(library)
+        members = int(keep.sum())
+        # every id read; the rows of the pixels that have a segment
+        b, by = bound_ms(n * 4 + members * f * 4 + s * f * 4, members * f)
         rows.append(dict(name=f"segment_sum[{s}x{f}]", shape=[n, s, f],
                          max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
                          library_ms=lib, bound_ms=b, bound_by=by))
+
+
+def kernel_k1_adversarial(torch):
+    """K1 on inputs built to break a grouped accumulation: every id equal,
+    sorted ids, every id out of range, ragged and tiny N, S = 1, F = 1 and
+    32, S = 4096 (segment tiles); and the partials summed in the launch or
+    by a second one must give the same bits."""
+    from patolette_tpu_torch.kernels import segment
+
+    n = N_SAMPLES
+    x = _working_pixels(torch, n, 40)
+    g = torch.Generator(device=DEV).manual_seed(41)
+
+    def ids_in(hi, size=n):
+        return torch.randint(0, hi, (size,), generator=g, device=DEV,
+                             dtype=torch.int32)
+
+    def feats_of(size, f):
+        if f in (4, 11):
+            return _k1_feats(torch, x[:size], f)
+        return torch.rand((size, f), generator=g, device=DEV)
+
+    cases = {
+        "all_equal": (feats_of(n, 11), torch.full((n,), 3, device=DEV,
+                                                  dtype=torch.int32), 16),
+        "sorted": (feats_of(n, 11), ids_in(512).sort().values, 512),
+        "all_out_of_range": (feats_of(n, 11),
+                             torch.where(ids_in(2) == 0, 16, -1)
+                             .to(torch.int32), 16),
+        "ragged_n": (feats_of(n - 17, 11), ids_in(17, n - 17), 16),
+        "n_1": (feats_of(1, 11), ids_in(16, 1), 16),
+        "s_1": (feats_of(n, 11), ids_in(2), 1),
+        "f_1": (feats_of(n, 1), ids_in(17), 16),
+        "f_32": (feats_of(n, 32), ids_in(257), 256),
+        "s_4096_tiles": (feats_of(n, 11), ids_in(4096), 4096),
+    }
+    out = {"phase": "kernel-adversarial", "kernel": "segment_sum"}
+    for name, (feats, ids, s) in cases.items():
+        got, err, tol = _k1_check(torch, feats, ids, s, name)
+        if name == "all_out_of_range":
+            check(not bool(got.any()), "K1: out-of-range ids added")
+        out[name] = {"n": ids.shape[0], "s": s, "f": feats.shape[1],
+                     "max_abs_err": err, "tol": tol}
+    # the in-launch sum and the second launch sum in the same order
+    fuse = segment.FUSE_MAX_LEN
+    for s, f, hi in K1_SHAPES[1:]:
+        feats, ids = feats_of(n, f), ids_in(hi)
+        fused = segment.segment_sum(feats, ids, s)
+        segment.FUSE_MAX_LEN = 0
+        try:
+            second = segment.segment_sum(feats, ids, s)
+        finally:
+            segment.FUSE_MAX_LEN = fuse
+        torch.cuda.synchronize()
+        check(torch.equal(fused, second),
+              f"K1 ({s},{f}): fused and two-launch sums differ")
+        out[f"fused_equals_two_launch[{s}x{f}]"] = True
+    emit(out)
 
 
 def kernel_k2(torch, rows):
@@ -399,6 +556,55 @@ def kernel_k4(torch, rows):
                      max_abs_err_reduced=err_red, ms=ms,
                      plain_ms=plain, library_ms=None, bound_ms=b,
                      bound_by=by))
+
+
+def kernel_k4_adversarial(torch):
+    """K4 at P = 1, with every sample nearest one centre (the other 255
+    valid slots empty: 255 splits), zero weights on a third of the samples,
+    and two centres exactly equal (the lower index must win): labels equal
+    to the plain version's, centres within its tolerance, the same bits
+    twice."""
+    from patolette_tpu_torch.kernels.kmeans import (kmeans_step,
+                                                    kmeans_step_plain)
+
+    m, p = N_SAMPLES, 256
+    x = _working_pixels(torch, m, 42)
+    g = torch.Generator(device=DEV).manual_seed(43)
+
+    def pick(k):
+        return x[torch.randint(0, m, (k,), generator=g, device=DEV)].clone()
+
+    def every(k):
+        return torch.ones(k, dtype=torch.bool, device=DEV)
+
+    far = pick(p)
+    far[1:] += 5.0
+    tie = pick(p)
+    tie[200] = tie[7]
+    w = torch.rand((m,), generator=g, device=DEV)
+    w[torch.rand((m,), generator=g, device=DEV) < 1.0 / 3.0] = 0.0
+    cases = {"p_1": (None, pick(1), every(1)),
+             "one_centre_nearest": (None, far, every(p)),
+             "zero_weights": (w, pick(p), every(p)),
+             "exact_ties": (None, tie, every(p))}
+    out = {"phase": "kernel-adversarial", "kernel": "kmeans_step"}
+    for name, (wt, c0, valid) in cases.items():
+        c_k, l_k = kmeans_step(x, wt, c0, valid, return_labels=True)
+        c_t, l_t = kmeans_step_plain(x, wt, c0, valid)
+        c_k2, l_k2 = kmeans_step(x, wt, c0, valid, return_labels=True)
+        torch.cuda.synchronize()
+        agree = _agreement(l_k, l_t)
+        check(agree == 1.0, f"K4 {name}: labels agree only {agree}")
+        err = float((c_k - c_t).abs().max())
+        check(err <= 1e-6, f"K4 {name}: centres deviate {err}")
+        check(torch.equal(c_k, c_k2) and torch.equal(l_k, l_k2),
+              f"K4 {name}: not deterministic")
+        if name == "exact_ties":
+            check(bool((l_k == 7).any()) and not bool((l_k == 200).any()),
+                  "K4: a tie went to the higher index")
+        out[name] = {"p": c0.shape[0], "label_agreement": agree,
+                     "max_abs_err": err}
+    emit(out)
 
 
 def kernel_k4_large(torch, rows):
@@ -857,13 +1063,68 @@ def kernel_k10(torch, rows):
             bound_by=by, ops_per_pixel=[f32_ops, f64_ops]))
 
 
+def phase_split(torch):
+    """K1 and K4 alone, at K1_SHAPES and at P = 256 and P_LARGE: CUDA-event
+    ms of a wrapper call, the enqueue rate, each launch's device time
+    (launch_split), and index_add_ beside K1. It runs after every e2e
+    phase: once torch.profiler has traced a process, each later launch in
+    it pays CUPTI's cost on the host, which the LQ loop's laps would
+    show. With ``--root DIR`` the kernels are another checkout's (a
+    parent's, timed in turns with this one's)."""
+    from patolette_tpu_torch.kernels.kmeans import kmeans_step
+    from patolette_tpu_torch.kernels.segment import segment_sum
+
+    n = N_SAMPLES
+    x = _working_pixels(torch, n, 1)
+    for s, f, hi in K1_SHAPES:
+        g = torch.Generator(device=DEV).manual_seed(s)
+        ids = torch.randint(0, hi, (n,), generator=g, device=DEV,
+                            dtype=torch.int32)
+        feats = _k1_feats(torch, x, f)
+        keep = ids < s
+        idsk, featsk = ids[keep].long(), feats[keep].contiguous()
+        def library():
+            return torch.zeros((s, f), device=DEV).index_add_(0, idsk,
+                                                              featsk)
+
+        ms = time_ms(lambda: segment_sum(feats, ids, s), reps=30)
+        lib = time_ms(library, reps=30)
+        emit({"phase": "split", "kernel": "segment_sum", "shape": [n, s, f],
+              "ms": ms, "library_ms": lib,
+              "enqueue_ms": enqueue_ms(lambda: segment_sum(feats, ids, s)),
+              "library_enqueue_ms": enqueue_ms(library),
+              "split": launch_split(torch,
+                                    lambda: segment_sum(feats, ids, s)),
+              "library_split": launch_split(torch, library)})
+    for p in (256, P_LARGE):
+        g = torch.Generator(device=DEV).manual_seed(7)
+        c0 = x[torch.randint(0, n, (p,), generator=g, device=DEV)].clone()
+        valid = torch.ones(p, dtype=torch.bool, device=DEV)
+        valid[-2:] = False
+        reps = 30 if p == 256 else 5
+        ms = time_ms(lambda: kmeans_step(x, None, c0, valid), reps=reps)
+        emit({"phase": "split", "kernel": "kmeans_step", "shape": [n, p],
+              "ms": ms, "enqueue_ms": enqueue_ms(
+                  lambda: kmeans_step(x, None, c0, valid),
+                  calls=100 if p == 256 else 5),
+              "split": launch_split(
+                  torch, lambda: kmeans_step(x, None, c0, valid),
+                  reps=reps)})
+
+
 def phase_kernels(torch):
+    from patolette_tpu_torch.kernels import build
+
     rows = []
     kernel_k1(torch, rows)
+    kernel_k1_adversarial(torch)
     kernel_k2(torch, rows)
     kernel_k3(torch, rows)
     kernel_k4(torch, rows)
+    kernel_k4_adversarial(torch)
     kernel_k4_large(torch, rows)
+    # the e2e phases' peak device memory counts what their calls hold
+    build.clear_scratch()
     tables = kernel_k5(torch, rows)
     kernel_k6(torch, rows)
     kernel_k6_pull(torch, rows, tables)
@@ -2222,16 +2483,23 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (ROOT / "patolette_tpu_torch" / "csrc").is_dir():
+    args = sys.argv[1:]
+    root = (pathlib.Path(args[args.index("--root") + 1]).resolve()
+            if "--root" in args else ROOT)
+    if not (root / "patolette_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     info = phase_device(torch)
     phase_build()
+    if "--split" in args:
+        phase_split(torch)
+        print(nvidia_smi_line(), flush=True)
+        return 0
     rows, tables = phase_kernels(torch)
     pull_launches = phase_pull(torch, tables)
     del tables
@@ -2254,6 +2522,7 @@ def main():
     if "--routes" in sys.argv[1:]:
         phase_routes(torch, img_100mp)
     del img_100mp
+    phase_split(torch)
 
     line = []
     for r in rows:

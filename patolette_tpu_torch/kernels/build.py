@@ -20,6 +20,7 @@ the tests reach it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -44,10 +45,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argument types (every one returns an int error).
 SIGNATURES = {
-    "pt_segment_sum": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "pt_segment_sum": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "pt_lq_candidates": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "pt_assign_planar": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
-    "pt_kmeans_moments": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "pt_kmeans_moments": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                          _P),
     "pt_kmeans_update": (_P, _P, _P, _I, _P, _P, _P),
     "pt_hilbert_keys": (_L, _I, _I, _P, _P),
     "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
@@ -73,6 +75,7 @@ HOST_SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 _host_lib = None
+_scratch = {}
 
 
 def source_hash() -> str:
@@ -224,6 +227,37 @@ def stream():
     import torch
 
     return torch.cuda.current_stream().cuda_stream
+
+
+def scratch(name: str, numel: int, dtype, device, zero: bool = False):
+    """A flat device buffer of at least ``numel`` elements that the kernel
+    ``name`` reuses from call to call (kept per name, type and device;
+    replaced by a larger one when a call needs more). The kernels run in
+    order on the current stream, so one call's use of it ends before the
+    next call's begins. ``zero``: zero-filled when made (ticket counters,
+    which the kernels leave zero)."""
+    import torch
+
+    key = (name, dtype, device)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < numel:
+        make = torch.zeros if zero else torch.empty
+        buf = make((max(numel, 1),), dtype=dtype, device=device)
+        _scratch[key] = buf
+    return buf
+
+
+def clear_scratch() -> None:
+    """Release every kernel's reused buffers."""
+    _scratch.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -1,15 +1,17 @@
 """K4: one weighted Lloyd step.
 
-Kernel: ``csrc/kmeans.cu``, two entry points: the moments
-(``pt_kmeans_moments``: assignment, per-block ``[w, w x]`` partials, their
-sum in block order into ``(P, 4)``) and the update (``pt_kmeans_update``:
-one block updates the centres from those sums and runs the empty-cluster
-split). ``reduce`` runs between them: the multi-device route sums the
-ranks' moments there, as the JAX package ``psum``s its one-hot sums before
-the update (``kmeans.py:107-113``). Any number of centres: the kernel
-tiles them through shared memory and keeps tables that do not fit there in
-device scratch. Twin: the JAX package's loop body (``kmeans.py:104-117``)
-with ``_split_empty`` (``kmeans.py:59-86``).
+Kernel: ``csrc/kmeans.cu``, two entry points of one launch each: the
+moments (``pt_kmeans_moments``: assignment, warp-grouped ``[w, w x]``
+sums, the blocks' partials summed in the same launch into ``(P, 4)``) and
+the update (``pt_kmeans_update``: one block updates the centres from those
+sums and runs the empty-cluster split). ``reduce`` runs between them: the
+multi-device route sums the ranks' moments there, as the JAX package
+``psum``s its one-hot sums before the update (``kmeans.py:107-113``). Any
+number of centres: the kernel tiles them through shared memory and keeps
+tables that do not fit there in device scratch. The partials, the ticket
+counters and the masses scratch are reused from call to call
+(``build.scratch``). Twin: the JAX package's loop body
+(``kmeans.py:104-117``) with ``_split_empty`` (``kmeans.py:59-86``).
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ from patolette_tpu_torch.kernels.assign import assign_planar_plain
 from patolette_tpu_torch.kernels.segment import segment_sum_plain
 
 SPLIT_EPS = 1.0 / 1024.0  # Clustering.cpp EPS
-PIXELS_PER_BLOCK = 2048
-MAX_BLOCKS = 256
+BATCH = 1024         # samples of a block's pass (csrc/kmeans.cu kBatch)
+BLOCKS_PER_SM = 2
+GROUP = 16           # blocks whose partials are summed first (PT_GROUP)
+MAX_BLOCKS = 1024    # PT_GROUP * PT_MAX_GROUPS
 
 
 def split_empty(centers, hassign, valid):
@@ -94,22 +98,27 @@ def kmeans_step(samples, weights, centers, valid, return_labels=False,
         raise ValueError("kmeans_step: bad shapes")
     if p < 1:
         raise ValueError("kmeans_step: no centres")
-    valid_i = valid.to(torch.int32)
-    build.require_cuda("kmeans_step", samples, weights, centers, valid_i)
+    valid_b = valid.to(torch.bool).contiguous()  # read as bytes, 0 or 1
+    build.require_cuda("kmeans_step", samples, weights, centers, valid_b)
     dev = samples.device
-    nblocks = max(1, min(MAX_BLOCKS, -(-m // PIXELS_PER_BLOCK)))
+    nblocks = max(1, min(MAX_BLOCKS, BLOCKS_PER_SM * build.sm_count(dev),
+                         -(-m // BATCH)))
     per_block = max(1, -(-m // nblocks))
-    partials = torch.empty((nblocks, p, 4), dtype=torch.float32, device=dev)
+    partials = build.scratch("kmeans_step", nblocks * p * 4, torch.float32,
+                             dev)
+    counters = build.scratch("kmeans_step.tickets", nblocks // GROUP + 2,
+                             torch.int32, dev, zero=True)
+    masses = build.scratch("kmeans_step.masses", p, torch.float32, dev)
     mom = torch.empty((p, 4), dtype=torch.float32, device=dev)
     out = torch.empty((p, 3), dtype=torch.float32, device=dev)
-    masses = torch.empty((p,), dtype=torch.float32, device=dev)
     labels = (torch.empty((m,), dtype=torch.int32, device=dev)
               if return_labels else None)
     lib = build.library()
+    stream = build.stream()
     err = lib.pt_kmeans_moments(
         build.ptr(samples), build.ptr(weights), build.ptr(centers),
-        build.ptr(valid_i), m, p, per_block, nblocks, build.ptr(partials),
-        build.ptr(labels), build.ptr(mom), build.stream(),
+        build.ptr(valid_b), m, p, per_block, nblocks, build.ptr(partials),
+        build.ptr(counters), build.ptr(labels), build.ptr(mom), stream,
     )
     build.check(err, "kmeans_step (moments)")
     if reduce is not None:
@@ -117,9 +126,11 @@ def kmeans_step(samples, weights, centers, valid, return_labels=False,
         if mom.shape != (p, 4) or mom.dtype != torch.float32 \
                 or mom.device != dev:
             raise ValueError("kmeans_step: reduce must keep (P, 4) f32")
+        if mom.data_ptr() % 16:  # the update reads rows as float4
+            mom = mom.clone()
     err = lib.pt_kmeans_update(
-        build.ptr(mom), build.ptr(centers), build.ptr(valid_i), p,
-        build.ptr(out), build.ptr(masses), build.stream(),
+        build.ptr(mom), build.ptr(centers), build.ptr(valid_b), p,
+        build.ptr(out), build.ptr(masses), stream,
     )
     build.check(err, "kmeans_step (update)")
     kernels.LAUNCHES["kmeans_step"] += 1
