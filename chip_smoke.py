@@ -21,12 +21,18 @@ Phases, each printing one JSON line:
      reduction between its two halves must match its plain version as
      without one. K1 is timed at GQ's 512x11, the palette's 256x4 and the
      LQ loop's 16x11 and 12x4 (id S: no candidate), K4 at P = 256 and
-     P_LARGE (their per-launch device times come in the split phase, 10);
-     K1 and K4 also run adversarial inputs
-     (kernel-adversarial lines: equal, sorted and out-of-range ids,
+     P_LARGE, K2 at the random case and on the inputs of the LQ loop's own
+     call at its median member share (logged from one 4K e2e call) (their
+     per-launch device times come in the split phase, 10);
+     K1, K2, K4 and K9 also run adversarial inputs
+     (kernel-adversarial lines: K1 equal, sorted and out-of-range ids,
      ragged and tiny N, S = 1, F = 1 and 32, segment tiles, the in-launch
-     and the second-launch sums bit for bit; K4 at P = 1, every sample
-     nearest one centre, zero weights, exact ties);
+     and the second-launch sums bit for bit; K2 C = 1, C = 12, dead slots,
+     a flat cluster, every member in one bucket, buckets equal and reruns
+     the same bits; K4 at P = 1, every sample nearest one centre, zero
+     weights, exact ties; K9 d, l and u bit for bit at 3x50, 50x3, 2x2,
+     1x1, 4x4, 31x31, 33x4000, 4000x33, 540x3840, 3840x2160 and on a
+     constant and an 8-level image);
   3b. pull: the table pull (ops/lut.py::pull_lut) once for each branch
      (u8 v2; v2 overflowed, v1; v1 over its cap, raw; u16 v2; u16 v2
      overflowed, raw), each equal to the table bit for bit and launching
@@ -83,10 +89,11 @@ Phases, each printing one JSON line:
      MESH4_DEFAULT_RATIO of world 1's at each seed of MESH4_SEEDS (the
      call without saliency is reported beside them);
   9. golden: the 96x64 inputs against tests/golden/quantize_golden.npz;
- 10. split: K1 and K4 alone at the kernels phase's shapes, each launch's
-     device time (torch.profiler) and the enqueue rate, index_add_ beside
-     K1; last, because a traced process pays CUPTI's cost on every later
-     launch.
+ 10. split: K1, K2, K4 and K9 alone at the kernels phase's shapes (K9
+     also at a mesh-4 rank's strip), each launch's device time
+     (torch.profiler) and the enqueue rate, index_add_ beside K1 and, on
+     K2's keys and precomputed features, beside K2; last, because a traced
+     process pays CUPTI's cost on every later launch.
 With ``--routes`` (a measurement, not a check) it then times the sampled
 LUT route against the resident route (direct map) at 4, 8.3 and 33 MP
 uint8, and the host map against plain torch CPU ops and a gather on the
@@ -95,6 +102,9 @@ With ``--split`` it runs only the device, build and split phases, and
 with ``--root DIR`` on the kernels of the checkout at DIR (a parent's,
 unpacked with git archive), so two versions can be timed in turns in one
 call.
+With ``--laps`` it runs only the device, build and laps phases (the
+uint8 LUT call's and the default call's walls and laps, several rounds),
+with ``--root DIR`` too.
 With ``--profile`` the e2e phases (and e2e-mesh-u8) also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
 DIR`` the ptxas report, the profiler tables and every JSON line
@@ -426,19 +436,12 @@ def kernel_k1_adversarial(torch):
     emit(out)
 
 
-def kernel_k2(torch, rows):
-    from patolette_tpu_torch.kernels.lq import (lq_candidates,
-                                                lq_candidates_plain)
+def _k2_tab(torch, x, wm, cand, c):
+    """The LQ loop's (C, 8) candidate table for these members: weighted
+    means, principal axes, the +-4 sigma range and its binning scale."""
     from patolette_tpu_torch.ops import eigen3
     from patolette_tpu_torch.ops import moments as M
 
-    n, c, nb = N_SAMPLES, 16, 512
-    x = _working_pixels(torch, n, 2)
-    g = torch.Generator(device=DEV).manual_seed(3)
-    cand = torch.randint(0, c + 1, (n,), generator=g, device=DEV,
-                         dtype=torch.int32)  # c = no candidate
-    member = cand < c
-    wm = torch.where(member, 1.0, 0.0).to(torch.float32).contiguous()
     m1 = M.segment_matmul(torch.cat([wm[:, None], wm[:, None] * x], 1)
                           .contiguous(), cand, c)
     mu = m1[:, 1:4] / m1[:, 0:1].clamp_min(1e-30)
@@ -447,29 +450,146 @@ def kernel_k2(torch, rows):
     axis, evals = eigen3.principal_axis(M.moments_cov(mom))
     pmax = 4.0 * evals[:, 2].clamp_min(0.0).sqrt()
     scale = M.bucket_scale(2.0 * pmax)
-    tab = torch.cat([mu, axis, -pmax[:, None], scale[:, None]],
-                    1).contiguous()
-    got, bucket = lq_candidates(x, wm, cand, tab, nb)
-    twin, tbucket = lq_candidates_plain(x, wm, cand, tab, nb)
-    again, _ = lq_candidates(x, wm, cand, tab, nb)
+    return torch.cat([mu, axis, -pmax[:, None], scale[:, None]],
+                     1).contiguous()
+
+
+_LQ_LOOP = {}
+
+
+def lq_loop_inputs(torch):
+    """K2's calls in one 4K e2e call (float32, 256 colours, ICtCp): each
+    call's member share (pixels with a candidate, of N), and a copy of the
+    inputs of the call at the median share. Once a process."""
+    if _LQ_LOOP:
+        return _LQ_LOOP
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch.models import local_q
+
+    seen = []
+    real = local_q.lq_candidates
+
+    def spy(colors, wm, cand, tab, nb):
+        c = tab.shape[0]
+        share = int((cand < c).sum()) / cand.shape[0]
+        seen.append((share, [t.clone() for t in (colors, wm, cand, tab)],
+                     nb))
+        return real(colors, wm, cand, tab, nb)
+
+    local_q.lq_candidates = spy
+    try:
+        ok, _, _, msg = pt.quantize(
+            W, H, synth_image_f32(W, H), 256, dither=False, tile_size=0,
+            kmeans_niter=32, color_space=pt.ColorSpace_ICtCp, device=DEV)
+    finally:
+        local_q.lq_candidates = real
+    check(ok, f"quantize failed: {msg}")
+    shares = [s for s, _, _ in seen]
+    share, args, nb = sorted(seen, key=lambda e: e[0])[len(seen) // 2]
+    # kept on the host: the e2e phases' peak device memory counts only
+    # what their calls hold
+    _LQ_LOOP.update(shares=shares, median=share,
+                    args=(*(a.cpu() for a in args), nb),
+                    c=[int(a[3].shape[0]) for _, a, _ in seen])
+    return _LQ_LOOP
+
+
+def k2_cases(torch):
+    """K2's inputs: the random case (16 of every 17 pixels members), the
+    LQ loop's own call at its median member share, C = 1, C = 12, dead
+    slots (4 of 16 slots without pixels), a flat cluster (scale 0), and
+    every member in one bucket (every lane of a step one key)."""
+    n, nb = N_SAMPLES, 512
+    x = _working_pixels(torch, n, 2)
+    g = torch.Generator(device=DEV).manual_seed(3)
+
+    def case(c, hi, flat=()):
+        # ids drawn from [0, hi]; hi and above: no candidate (id C)
+        cand = torch.randint(0, hi + 1, (n,), generator=g, device=DEV,
+                             dtype=torch.int32)
+        cand = torch.where(cand >= hi, c, cand).to(torch.int32)
+        wm = torch.where(cand < c, 1.0, 0.0).to(torch.float32)
+        tab = _k2_tab(torch, x, wm.contiguous(), cand, c)
+        for j in flat:
+            tab[j, 7] = 0.0
+        return x, wm.contiguous(), cand, tab.contiguous(), nb
+
+    one_x = x[:1].expand(n, 3).contiguous()
+    one_cand = torch.zeros((n,), dtype=torch.int32, device=DEV)
+    one_wm = torch.ones((n,), dtype=torch.float32, device=DEV)
+    return {
+        "random": case(16, 16),
+        "lq_loop_median": tuple(a.to(DEV) if torch.is_tensor(a) else a
+                                for a in lq_loop_inputs(torch)["args"]),
+        "c_1": case(1, 1),
+        "c_12": case(12, 12),
+        "dead_slots": case(16, 12),
+        "flat_cluster": case(16, 16, flat=(5,)),
+        "one_bucket": (one_x, one_wm, one_cand,
+                       _k2_tab(torch, one_x, one_wm, one_cand, 1), nb),
+    }
+
+
+def _k2_check(torch, args, what):
+    """K2 against its plain version: buckets equal, the table within 1e-5
+    of its largest magnitude (bf16-rounded features summed in f32 in two
+    orders), a rerun the same bits."""
+    from patolette_tpu_torch.kernels.lq import (lq_candidates,
+                                                lq_candidates_plain)
+
+    got, bucket = lq_candidates(*args)
+    twin, tbucket = lq_candidates_plain(*args)
+    again, abucket = lq_candidates(*args)
     torch.cuda.synchronize()
     err = float((got - twin).abs().max())
-    agree = _agreement(bucket[member], tbucket[member])
-    # bf16-rounded features summed in f32 in two orders
     tol = 1e-5 * float(twin.abs().max())
-    check(agree == 1.0, f"K2 buckets agree only {agree}")
-    check(err <= tol, f"K2 deviates {err} > {tol}")
-    check(torch.equal(got, again), "K2 not deterministic")
-    ms = time_ms(lambda: lq_candidates(x, wm, cand, tab, nb))
-    plain = time_ms(lambda: lq_candidates_plain(x, wm, cand, tab, nb),
-                    reps=10, warm=1)
-    members = int(member.sum())
-    b, by = bound_ms(n * (12 + 4 + 4) + c * 32 + n * 4 + c * nb * 20,
-                     members * 24)
-    rows.append(dict(name="lq_candidates", shape=[n, c, nb],
-                     max_abs_err=err, tol=tol, bucket_agreement=agree,
-                     ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
-                     bound_by=by))
+    check(torch.equal(bucket, tbucket), f"K2 {what}: buckets differ")
+    check(err <= tol, f"K2 {what} deviates {err} > {tol}")
+    check(torch.equal(got, again) and torch.equal(bucket, abucket),
+          f"K2 {what} not deterministic")
+    return err, tol
+
+
+def _k2_bound(args, partial_bytes=0):
+    """K2's least time: every pixel's candidate read and bucket written (8
+    B), a member's colour and weight read (16 B), the table read and
+    written; 24 operations a member. ``partial_bytes``: the design's
+    partial tables, written and read."""
+    colors, wm, cand, tab, nb = args
+    n, c = cand.shape[0], tab.shape[0]
+    members = int((cand < c).sum())
+    return bound_ms(n * 8 + members * 16 + c * 32 + c * nb * 20
+                    + 2 * partial_bytes, members * 24)
+
+
+def kernel_k2(torch, rows):
+    from patolette_tpu_torch.kernels import lq
+    from patolette_tpu_torch.kernels.lq import (lq_candidates,
+                                                lq_candidates_plain)
+
+    out = {"phase": "kernel-adversarial", "kernel": "lq_candidates"}
+    for name, args in k2_cases(torch).items():
+        err, tol = _k2_check(torch, args, name)
+        n, c = args[2].shape[0], args[3].shape[0]
+        out[name] = {"n": n, "c": c, "members": int((args[2] < c).sum()),
+                     "max_abs_err": err, "tol": tol}
+        if name not in ("random", "lq_loop_median"):
+            continue
+        ms = time_ms(lambda: lq_candidates(*args))
+        plain = time_ms(lambda: lq_candidates_plain(*args), reps=10, warm=1)
+        b, by = _k2_bound(args)
+        bp, _ = _k2_bound(args, lq.partial_bytes(args[0].device, n, c,
+                                                 args[4]))
+        rows.append(dict(
+            name="lq_candidates" + ("" if name == "random" else "[loop]"),
+            shape=[n, c, args[4]], member_share=out[name]["members"] / n,
+            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+            library_ms=None, bound_ms=b, bound_by=by,
+            bound_with_partials_ms=bp))
+    loop = lq_loop_inputs(torch)
+    out["lq_loop_shares"] = loop["shares"]
+    out["lq_loop_c"] = loop["c"]
+    emit(out)
 
 
 def kernel_k3(torch, rows):
@@ -909,23 +1029,63 @@ def kernel_k8(torch, rows):
                      bound_by=by))
 
 
+def _mbd_image(torch, rows_, cols, kind="texture"):
+    """A (rows, cols) channel-mean image: bench.py's texture, one constant
+    (every barrier ties), or the texture on 8 levels (b1 = b2 and d = b
+    ties)."""
+    x = torch.from_numpy(synth_image_f32(cols, rows_)).to(DEV)
+    img = (x.sum(1) * (1.0 / 3.0)).reshape(rows_, cols).contiguous()
+    if kind == "constant":
+        return torch.full_like(img, 0.5)
+    if kind == "levels":
+        return torch.floor(img * 8.0) * 0.125
+    return img
+
+
+# K9's adversarial inputs (rows, cols, image): images with a side under 4
+# (the planes initialised apart, then only the passes that have cells:
+# the forward pass alone at 3xN and Nx3, none at 2x2 and 1x1), the
+# smallest image with a cell in each pass, one band less a row, one band
+# plus one row (wide and tall), a mesh-4 rank's strip, the 4K image
+# upright, and the two tie images
+K9_CASES = ((3, 50, "texture"), (50, 3, "texture"), (2, 2, "texture"),
+            (1, 1, "texture"), (4, 4, "texture"), (31, 31, "texture"),
+            (33, 4000, "texture"), (4000, 33, "texture"),
+            (540, 3840, "texture"), (3840, 2160, "texture"),
+            (300, 1000, "constant"), (300, 1000, "levels"))
+
+
+def _k9_check(torch, img, what):
+    """K9's d, l and u equal to its plain version's, and a rerun's."""
+    from patolette_tpu_torch.kernels.mbd import mbd, mbd_plain
+
+    got = mbd(img, return_lu=True)
+    twin = mbd_plain(img)
+    again = mbd(img, return_lu=True)
+    torch.cuda.synchronize()
+    for name, a, t, r in zip("dlu", got, twin, again):
+        check(torch.equal(a, t), f"K9 {what}: {name} differs from the plain "
+              "version")
+        check(torch.equal(a, r), f"K9 {what}: {name} not deterministic")
+
+
 def kernel_k9(torch, rows):
     from patolette_tpu_torch.kernels.mbd import mbd, mbd_plain
 
+    out = {"phase": "kernel-adversarial", "kernel": "mbd"}
+    for r, c, kind in K9_CASES:
+        _k9_check(torch, _mbd_image(torch, r, c, kind), f"{r}x{c} {kind}")
+        out[f"{r}x{c}_{kind}"] = "equal"
+    emit(out)
     rows_, cols = H, W
-    x = torch.from_numpy(synth_image_f32(cols, rows_)).to(DEV)
-    img = (x.sum(1) * (1.0 / 3.0)).reshape(rows_, cols).contiguous()
-    got = mbd(img, return_lu=True)
-    twin = mbd_plain(img)
-    again = mbd(img)
-    torch.cuda.synchronize()
-    for name, a, t in zip("dlu", got, twin):
-        check(torch.equal(a, t), f"K9 {name} differs from the plain version")
-    check(torch.equal(got[0], again), "K9 not deterministic")
+    img = _mbd_image(torch, rows_, cols)
+    _k9_check(torch, img, "4K")
     ms = time_ms(lambda: mbd(img))
     plain = time_ms(lambda: mbd_plain(img), reps=1, warm=0)
     n = rows_ * cols
-    b, by = bound_ms(3 * 7 * 4 * n, 3 * 8 * n)
+    # the first pass reads img and writes l, u and d (it initialises them);
+    # the other two read all four planes and write three
+    b, by = bound_ms((16 + 28 + 28) * n, 3 * 8 * n)
     rows.append(dict(name="mbd", shape=[rows_, cols], max_abs_err=0.0,
                      ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
                      bound_by=by))
@@ -1063,15 +1223,37 @@ def kernel_k10(torch, rows):
             bound_by=by, ops_per_pixel=[f32_ops, f64_ops]))
 
 
+def _k2_feats(torch, colors, wm, cand, tab):
+    """The bf16-rounded features K2 sums, op for op its plain version's
+    (written out here: ``--split --root`` runs a parent's kernels)."""
+    t = torch.cat([tab, torch.zeros((1, 8), device=DEV)])[cand.long()]
+    x = colors - t[:, 0:3]
+    wx = wm[:, None] * x
+    wxx = wx * x
+    return torch.cat(
+        [wm[:, None], wx, ((wxx[:, 0] + wxx[:, 1]) + wxx[:, 2])[:, None]],
+        dim=-1).to(torch.bfloat16).to(torch.float32)
+
+
+# K9's split shapes (rows, cols): the 4K default call, a mesh-4 rank's strip
+K9_SPLIT_SHAPES = ((H, W), (H // 4, W))
+
+
 def phase_split(torch):
-    """K1 and K4 alone, at K1_SHAPES and at P = 256 and P_LARGE: CUDA-event
-    ms of a wrapper call, the enqueue rate, each launch's device time
-    (launch_split), and index_add_ beside K1. It runs after every e2e
-    phase: once torch.profiler has traced a process, each later launch in
-    it pays CUPTI's cost on the host, which the LQ loop's laps would
-    show. With ``--root DIR`` the kernels are another checkout's (a
-    parent's, timed in turns with this one's)."""
+    """K1, K2, K4 and K9 alone: CUDA-event ms of a wrapper call, the
+    enqueue rate, each launch's device time (launch_split); index_add_
+    beside K1, and beside K2 on K2's own keys and precomputed features
+    (a yardstick of its accumulate part only). K1 at K1_SHAPES, K4 at P =
+    256 and P_LARGE, K2 at the random case and at the LQ loop's median
+    member share, K9 at K9_SPLIT_SHAPES. It runs after every e2e phase:
+    once torch.profiler has traced a process, each later launch in it
+    pays CUPTI's cost on the host, which the LQ loop's laps would show.
+    With ``--root DIR`` the kernels are another checkout's (a parent's,
+    timed in turns with this one's)."""
     from patolette_tpu_torch.kernels.kmeans import kmeans_step
+    from patolette_tpu_torch.kernels.lq import (lq_candidates,
+                                                lq_candidates_plain)
+    from patolette_tpu_torch.kernels.mbd import mbd
     from patolette_tpu_torch.kernels.segment import segment_sum
 
     n = N_SAMPLES
@@ -1110,6 +1292,90 @@ def phase_split(torch):
               "split": launch_split(
                   torch, lambda: kmeans_step(x, None, c0, valid),
                   reps=reps)})
+    cases = k2_cases(torch)
+    for name in ("random", "lq_loop_median"):
+        args = cases[name]
+        colors, wm, cand, tab, nb = args
+        c = tab.shape[0]
+        member = cand < c
+        _, bucket = lq_candidates_plain(*args)
+        keys = (cand.long() * nb + bucket.long())[member]
+        featsk = _k2_feats(torch, colors, wm, cand, tab)[member].contiguous()
+        def library():
+            return torch.zeros((c * nb, 5), device=DEV).index_add_(
+                0, keys, featsk)
+
+        emit({"phase": "split", "kernel": "lq_candidates", "case": name,
+              "shape": [cand.shape[0], c, nb],
+              "member_share": int(member.sum()) / cand.shape[0],
+              "ms": time_ms(lambda: lq_candidates(*args), reps=30),
+              "enqueue_ms": enqueue_ms(lambda: lq_candidates(*args)),
+              "split": launch_split(torch, lambda: lq_candidates(*args)),
+              "library": "index_add_ of the precomputed features by key "
+                         "(K2's accumulate part only)",
+              "library_ms": time_ms(library, reps=30),
+              "library_split": launch_split(torch, library)})
+    for rows_, cols in K9_SPLIT_SHAPES:
+        img = _mbd_image(torch, rows_, cols)
+        emit({"phase": "split", "kernel": "mbd", "shape": [rows_, cols],
+              "ms": time_ms(lambda: mbd(img)),
+              "enqueue_ms": enqueue_ms(lambda: mbd(img), calls=10),
+              "split": launch_split(torch, lambda: mbd(img), reps=5)})
+
+
+LAPS_ROUNDS = 8
+
+
+def phase_laps(torch, rounds=LAPS_ROUNDS):
+    """The laps K2 and K9 feed, alone: the 4K uint8 LUT call (``lq``) and
+    the 4K default call (``saliency``, ``lq``), each warmed up, then
+    ``rounds`` rounds of one plain call (wall, laps) and one synced call
+    (laps) of each, the two calls in turns. With ``--root DIR`` on another
+    checkout's package (a parent's), so that two trees can run in turns, a
+    process each, in one call to the card."""
+    import numpy as np
+
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch.models import pipeline
+
+    img = synth_image_f32(W, H)
+    calls = {
+        "e2e-u8-lut": (np.round(img * 255.0).astype(np.uint8),
+                       dict(dither=False, tile_size=0, kmeans_niter=32,
+                            color_space=pt.ColorSpace_ICtCp)),
+        "e2e-default": (img, {}),
+    }
+
+    def run(name, **extra):
+        colors, kw = calls[name]
+        t0 = time.perf_counter()
+        ok, _, _, msg = pt.quantize(W, H, colors, 256, **kw, **extra)
+        wall = time.perf_counter() - t0
+        check(ok, f"{name} failed: {msg}")
+        return wall, dict(pipeline.LAST_STAGE_TIMES)
+
+    for name in calls:
+        run(name)
+        run(name)
+    laps = ("lq", "saliency")
+    out = {name: {k: [] for k in ("wall_s", *laps,
+                                  *(f"{lap}_synced" for lap in laps))}
+           for name in calls}
+    for _ in range(rounds):
+        for name in calls:
+            wall, plain = run(name)
+            _, synced = run(name, sync_stages=True)
+            r = out[name]
+            r["wall_s"].append(wall)
+            for lap in laps:
+                if lap in plain:
+                    r[lap].append(plain[lap])
+                    r[f"{lap}_synced"].append(synced[lap])
+    for name, r in out.items():
+        r = {k: v for k, v in r.items() if v}
+        emit({"phase": "laps", "call": name, "rounds": rounds,
+              "package": str(pathlib.Path(pt.__file__).parent.parent), **r,
+              "median": {k: statistics.median(v) for k, v in r.items()}})
 
 
 def phase_kernels(torch):
@@ -1123,8 +1389,6 @@ def phase_kernels(torch):
     kernel_k4(torch, rows)
     kernel_k4_adversarial(torch)
     kernel_k4_large(torch, rows)
-    # the e2e phases' peak device memory counts what their calls hold
-    build.clear_scratch()
     tables = kernel_k5(torch, rows)
     kernel_k6(torch, rows)
     kernel_k6_pull(torch, rows, tables)
@@ -1132,6 +1396,8 @@ def phase_kernels(torch):
     kernel_k8(torch, rows)
     kernel_k9(torch, rows)
     kernel_k10(torch, rows)
+    # the e2e phases' peak device memory counts what their calls hold
+    build.clear_scratch()
     for r in rows:
         emit(dict(phase="kernel", **r))
     return rows, tables
@@ -2496,8 +2762,8 @@ def main():
 
     info = phase_device(torch)
     phase_build()
-    if "--split" in args:
-        phase_split(torch)
+    if "--split" in args or "--laps" in args:
+        (phase_split if "--split" in args else phase_laps)(torch)
         print(nvidia_smi_line(), flush=True)
         return 0
     rows, tables = phase_kernels(torch)

@@ -2,22 +2,19 @@
 //
 // Determinism rule of every kernel here: no float atomics, in global or in
 // shared memory. Every float sum has an order fixed by the code, not by
-// scheduling, so the same inputs give the same bits on every run. Two
-// schemes build per-block partial sums:
-// - owner scans (K2): each output slot is written by exactly one thread,
-//   which walks the block's pixels in order; pt_sum_partials then sums the
-//   per-block partials in block order in a second kernel;
-// - warp-grouped accumulation (K1, K4): each warp owns a table in shared
-//   memory and walks its own contiguous range of pixels 32 at a time;
-//   __match_any_sync groups the lanes of a step by key, each group is
-//   summed in ascending lane order and added to the warp's table by one
-//   lane per column (pt_warp_accumulate). The block sums its warps' tables
-//   in warp order; the blocks' partials are summed in groups of PT_GROUP
-//   consecutive blocks, each group in block order, then the groups in
-//   group order (pt_finish_partials in the same launch, or pt_sum_groups
-//   as a second one: both give the same bits). Integer atomics appear
-//   only as tickets (which block finishes last), whose result does not
-//   depend on the order in which they are taken.
+// scheduling, so the same inputs give the same bits on every run. The
+// per-block partial sums come from warp-grouped accumulation (K1, K2,
+// K4): each warp owns a table in shared memory and walks its own
+// contiguous range of pixels 32 at a time; __match_any_sync groups the
+// lanes of a step by key, each group is summed in ascending lane order and
+// added to the warp's table by one lane per column (pt_warp_accumulate).
+// The block sums its warps' tables in warp order; the blocks' partials are
+// summed in groups of PT_GROUP consecutive blocks, each group in block
+// order, then the groups in group order (pt_finish_partials in the same
+// launch, or pt_sum_groups as a second one: both give the same bits).
+// Integer atomics appear only as tickets (which block finishes last, which
+// band starts next), whose results do not depend on the order in which
+// they are taken.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,8 +22,6 @@
 
 #define PT_EXPORT extern "C" __attribute__((visibility("default")))
 
-// Pixels staged in shared memory per step of a block's walk.
-constexpr int PT_STAGE = 256;
 // Threads of an accumulating block.
 constexpr int PT_THREADS = 256;
 constexpr unsigned PT_FULL = 0xffffffffu;
@@ -40,19 +35,6 @@ constexpr int PT_SMEM_MAX = 200 * 1024;
 // Each source is compiled on its own and linked into one library, so the
 // helpers below have internal linkage.
 namespace {
-
-// Sum over blocks, in block order: out[i] = sum_b partials[b * len + i].
-__global__ void pt_sum_partials(const float* __restrict__ partials,
-                                int nblocks, int len,
-                                float* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= len) return;
-  float acc = 0.0f;
-  for (int b = 0; b < nblocks; ++b) {
-    acc = __fadd_rn(acc, partials[(size_t)b * len + i]);
-  }
-  out[i] = acc;
-}
 
 // d = |c|^2 - 2 (x . c), each op rounded on its own (no FMA contraction),
 // in the order of the JAX package's planar assignment: (xa*ca + xb*cb) +

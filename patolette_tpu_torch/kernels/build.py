@@ -46,14 +46,15 @@ _L = ctypes.c_longlong
 # C entry points: name -> argument types (every one returns an int error).
 SIGNATURES = {
     "pt_segment_sum": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    "pt_lq_candidates": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "pt_lq_candidates": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                         _P),
     "pt_assign_planar": (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     "pt_kmeans_moments": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                           _P),
     "pt_kmeans_update": (_P, _P, _P, _I, _P, _P, _P),
     "pt_hilbert_keys": (_L, _I, _I, _P, _P),
     "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "pt_mbd": (_P, _P, _P, _P, _I, _I, _P),
+    "pt_mbd": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "pt_lut_argmin": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
     "pt_color_convert": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
     "pt_rle_encode_u8_v2": (_P, _I, _P, _P, _P, _P, _L, _P),
@@ -230,12 +231,14 @@ def stream():
 
 
 def scratch(name: str, numel: int, dtype, device, zero: bool = False):
-    """A flat device buffer of at least ``numel`` elements that the kernel
-    ``name`` reuses from call to call (kept per name, type and device;
-    replaced by a larger one when a call needs more). The kernels run in
-    order on the current stream, so one call's use of it ends before the
-    next call's begins. ``zero``: zero-filled when made (ticket counters,
-    which the kernels leave zero)."""
+    """A flat device buffer of at least ``numel`` elements that the kernels
+    asking for ``name`` reuse from call to call (kept per name, type and
+    device; replaced by a larger one when a call needs more). The kernels
+    run in order on the current stream, so one call's use of it ends
+    before the next call's begins; K1, K2 and K4 share ``"partials"``
+    (each is done with its partial sums when its launches end). ``zero``:
+    zero-filled when made (tickets and hand-over words, which the
+    kernels leave zero)."""
     import torch
 
     key = (name, dtype, device)

@@ -104,7 +104,7 @@ def kmeans_step(samples, weights, centers, valid, return_labels=False,
     nblocks = max(1, min(MAX_BLOCKS, BLOCKS_PER_SM * build.sm_count(dev),
                          -(-m // BATCH)))
     per_block = max(1, -(-m // nblocks))
-    partials = build.scratch("kmeans_step", nblocks * p * 4, torch.float32,
+    partials = build.scratch("partials", nblocks * p * 4, torch.float32,
                              dev)
     counters = build.scratch("kmeans_step.tickets", nblocks // GROUP + 2,
                              torch.int32, dev, zero=True)

@@ -1,11 +1,16 @@
 """K9: minimum barrier distance (three raster passes).
 
-Kernel: ``csrc/mbd.cu`` (a tiled wavefront). Twin: the JAX package's
-``mbd`` with ``_wavefront_pass`` (``saliency.py:62-164``): passes inverse,
-forward, inverse; ``d`` starts at +inf with zero borders and ``l = u =
-img``. The plain version walks the cell anti-diagonals of each pass with
-vector ops over a diagonal. Min, max and a subtraction only: every version
-gives the same bits.
+Kernel: ``csrc/mbd.cu``: one launch a pass, each a set of 32-row bands
+walked as systolic wavefronts (a block a band: one warp walks, one stages
+the columns through shared memory, one writes them back; bands handed out
+by an integer ticket, the row between bands handed over as self-flagging
+64-bit words); the first pass also initialises the planes. The ticket
+and the words are reused from call to call (``build.scratch``). Twin:
+the JAX package's ``mbd`` with ``_wavefront_pass``
+(``saliency.py:62-164``): passes inverse, forward, inverse; ``d`` starts
+at +inf with zero borders and ``l = u = img``. The plain version walks
+the cell anti-diagonals of each pass with vector ops over a diagonal.
+Min, max and a subtraction only: every version gives the same bits.
 """
 
 from __future__ import annotations
@@ -70,19 +75,28 @@ def mbd(img, return_lu=False):
     ``return_lu`` also the final lower and upper barrier planes."""
     if img.device.type == "cpu":
         d, l, u = mbd_plain(img)
+        return (d, l, u) if return_lu else d
+    if img.dtype != torch.float32 or img.dim() != 2:
+        raise TypeError("mbd: a (rows, cols) f32 image")
+    rows, cols = img.shape
+    if rows < 1 or cols < 1:
+        raise ValueError("mbd: empty image")
+    img = img.contiguous()
+    build.require_cuda("mbd", img)
+    # the first pass initialises the planes where it has cells to update
+    init = rows >= 4 and cols >= 4
+    if init:
+        l, u, d = (torch.empty_like(img) for _ in range(3))
     else:
-        if img.dtype != torch.float32 or img.dim() != 2:
-            raise TypeError("mbd: a (rows, cols) f32 image")
-        rows, cols = img.shape
-        if rows < 1 or cols < 1:
-            raise ValueError("mbd: empty image")
-        img = img.contiguous()
         l, u, d = _init(img)
-        build.require_cuda("mbd", img, l, u, d)
-        err = build.library().pt_mbd(
-            build.ptr(img), build.ptr(l), build.ptr(u), build.ptr(d), rows,
-            cols, build.stream(),
-        )
-        build.check(err, "mbd")
-        kernels.LAUNCHES["mbd"] += 1
+    dev = img.device
+    ticket = build.scratch("mbd.ticket", 1, torch.int32, dev, zero=True)
+    words = build.scratch("mbd.handover", -(-max(rows - 2, 1) // 32) * cols,
+                          torch.int64, dev, zero=True)
+    err = build.library().pt_mbd(
+        build.ptr(img), build.ptr(l), build.ptr(u), build.ptr(d), rows, cols,
+        int(init), build.ptr(ticket), build.ptr(words), build.stream(),
+    )
+    build.check(err, "mbd")
+    kernels.LAUNCHES["mbd"] += 1
     return (d, l, u) if return_lu else d

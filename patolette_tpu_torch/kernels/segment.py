@@ -70,7 +70,7 @@ def segment_sum(feats, ids, num_segments):
     if n == 0:
         return out.zero_()
     nblocks, per_warp = _grid(n, num_segments, f, dev)
-    partials = build.scratch("segment_sum", nblocks * num_segments * f,
+    partials = build.scratch("partials", nblocks * num_segments * f,
                              torch.float32, dev)
     counters = build.scratch("segment_sum.tickets", nblocks // GROUP + 2,
                              torch.int32, dev, zero=True)
