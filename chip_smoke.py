@@ -10,9 +10,15 @@ Phases, each printing one JSON line:
      the main paths' shapes (max deviation, label agreement), timed with
      CUDA events beside the plain version, a PyTorch library call where one
      computes the same function, and the least time the card could take;
-     K5's u8 and u16 tables must also equal K3's map of all 2^24 codes;
+     K5's u8 and u16 tables must also equal K3's map of all 2^24 codes,
+     as must K5's tables at the adversarial palettes and on a mesh rank's
+     quarter slice (kernel-k5-adversarial), with the centres each warp's
+     pruned scan listed (mean, max; K3's on the 4K synthetic image and
+     random pixels too) and K5's brick layout timed beside the linear one;
      K10 must equal its plain version bit for bit in every target, input
-     kind and working space, and on all 2^24 codes; K6 on a palette's
+     kind and working space, and on all 2^24 codes, and its pow_exact must
+     equal libdevice's pow on all 2^32 f32 inputs of each of its seven
+     exponents (kernel-k10-pow, with the fallback rates); K6 on a palette's
      2^24 table and on its second quarter must equal its plain version in
      header and words and decode back to the table, and must flag an
      alternating table; K6's v1 and u16 v2 formats on K5's 256- and
@@ -63,7 +69,9 @@ Phases, each printing one JSON line:
      fixed 1M-pixel subset, peak device memory within 10% of the 4K uint8
      call's (nothing on the device grows with N); then one call at 1024
      colours, whose table is u16 (K5 and K6's u16 v2 must launch, K3 must
-     not, the MSE must be below the 256-colour call's);
+     not, the MSE must be below the 256-colour call's); K5 on both calls'
+     own palettes equal to its plain version and to K3 on all 2^24 codes
+     (kernel-k5-headline);
   7. the streamed route: e2e-strip-dither, the 4K float32 image dithered
      without saliency on 2 row strips (K7, K8, K10, K1, K2, K4 must launch,
      K3 and K9 must not, bit-identical reruns, the dither checks of
@@ -89,8 +97,8 @@ Phases, each printing one JSON line:
      MESH4_DEFAULT_RATIO of world 1's at each seed of MESH4_SEEDS (the
      call without saliency is reported beside them);
   9. golden: the 96x64 inputs against tests/golden/quantize_golden.npz;
- 10. split: K1, K2, K4 and K9 alone at the kernels phase's shapes (K9
-     also at a mesh-4 rank's strip), each launch's device time
+ 10. split: K1, K2, K4, K9, K3, K5 and K10 alone at the kernels phase's
+     shapes (K9 also at a mesh-4 rank's strip), each launch's device time
      (torch.profiler) and the enqueue rate, index_add_ beside K1 and, on
      K2's keys and precomputed features, beside K2; last, because a traced
      process pays CUPTI's cost on every later launch.
@@ -592,19 +600,43 @@ def kernel_k2(torch, rows):
     emit(out)
 
 
+def _k3_inputs(torch, kind):
+    """K3's 4K inputs: ICtCp planes (random pixels, or bench.py's synthetic
+    image as the direct map gets it) and 256 centres drawn from them."""
+    if kind == "image":
+        from patolette_tpu_torch.kernels.colorspace import color_convert
+
+        chans = color_convert(torch.from_numpy(synth_image_f32(W, H)).to(DEV),
+                              2, "ictcp")
+        x = torch.stack(chans, 1)
+    else:
+        x = _working_pixels(torch, W * H, 4)
+        chans = tuple(x[:, k].contiguous() for k in range(3))
+    g = torch.Generator(device=DEV).manual_seed(5)
+    centers = x[torch.randint(0, W * H, (256,), generator=g,
+                              device=DEV)].contiguous()
+    valid = torch.ones(256, dtype=torch.bool, device=DEV)
+    valid[-3:] = False
+    return x, chans, centers, valid
+
+
 def kernel_k3(torch, rows):
+    """K3 at the 4K direct map's shape against its plain version (random
+    pixels); on those and on bench.py's synthetic image, the centres each
+    warp's pruned scan listed (the probe)."""
     from patolette_tpu_torch.kernels.assign import (assign_planar,
                                                     assign_planar_plain)
+    from patolette_tpu_torch.kernels.lut import nearest_probe
 
+    candidates = {}
+    for kind in ("image", "random"):
+        x, chans, centers, valid = _k3_inputs(torch, kind)
+        got = assign_planar(chans, centers, valid)
+        labels, counts = nearest_probe(chans, centers, valid, brick=False)
+        torch.cuda.synchronize()
+        check(torch.equal(labels, got), f"K3 {kind}: the probe differs")
+        candidates[kind] = _k5_candidates(torch, counts)
     n, p = W * H, 256
-    x = _working_pixels(torch, n, 4)
-    chans = tuple(x[:, k].contiguous() for k in range(3))
-    g = torch.Generator(device=DEV).manual_seed(5)
-    centers = x[torch.randint(0, n, (p,), generator=g,
-                              device=DEV)].contiguous()
-    valid = torch.ones(p, dtype=torch.bool, device=DEV)
-    valid[-3:] = False
-    got = assign_planar(chans, centers, valid)
     twin = assign_planar_plain(chans, centers, valid)
     torch.cuda.synchronize()
     agree = _agreement(got, twin)
@@ -617,7 +649,8 @@ def kernel_k3(torch, rows):
     b, by = bound_ms(n * 12 + p * 16 + n * 4, n * int(valid.sum()) * 7)
     rows.append(dict(name="assign_planar", shape=[n, p], label_agreement=agree,
                      max_abs_err=float((got != twin).sum()), ms=ms,
-                     plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by))
+                     plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+                     candidates=candidates))
 
 
 def kernel_k4(torch, rows):
@@ -763,11 +796,50 @@ def kernel_k4_large(torch, rows):
                      bound_by=by))
 
 
+def _k5_candidates(torch, counts):
+    """Mean and max of a probe's centres scanned per warp."""
+    c = counts.to(torch.float64)
+    return [float(c.mean()), int(counts.max())]
+
+
+def _k5_hold(torch, grid, centers, valid, dtype, what):
+    """K5 on ``grid`` equal to its plain version and to K3's map of the same
+    points; returns the table and the pruned probe's candidate counts."""
+    from patolette_tpu_torch.kernels.assign import assign_planar
+    from patolette_tpu_torch.kernels.lut import (BRICK_SLAB, lut_argmin,
+                                                 lut_argmin_plain,
+                                                 nearest_probe)
+
+    n = grid[0].shape[0]
+    got = lut_argmin(grid, centers, valid, dtype)
+    twin = lut_argmin_plain(grid, centers, valid, dtype)
+    direct = assign_planar(grid, centers, valid)
+    labels, counts = nearest_probe(grid, centers, valid,
+                                   brick=n % BRICK_SLAB == 0)
+    torch.cuda.synchronize()
+    check(got.dtype == dtype and got.shape == (n,), f"K5 {what}: output")
+    mismatches = int((got != twin).sum())
+    check(mismatches == 0, f"K5 {what} differs from its plain version")
+    check(torch.equal(got.to(torch.int32), direct),
+          f"K5 {what} differs from K3 on the grid")
+    check(torch.equal(labels, direct), f"K5 {what}: the probe's labels")
+    return got, _k5_candidates(torch, counts), mismatches
+
+
+
+
 def kernel_k5(torch, rows):
     """K5 on the cached ICtCp grid at P = 256 (u8) and P = 1024 (u16):
-    identical to its plain version and to K3 on all 2^24 codes."""
-    from patolette_tpu_torch.kernels.assign import assign_planar
-    from patolette_tpu_torch.kernels.lut import lut_argmin, lut_argmin_plain
+    identical to its plain version and to K3 on all 2^24 codes; the
+    centres each warp scanned (mean, max) and, through the probe, the
+    pruned scan's count and time in K3's linear layout beside K5's brick
+    layout; then the
+    adversarial palettes (kernels.lut.adversarial_palettes) on all 2^24
+    codes, and the 256-colour palette on a mesh rank's quarter slice of the
+    grid, equal to its plain version and to the whole table's quarter."""
+    from patolette_tpu_torch.kernels.lut import (adversarial_palettes,
+                                                 lut_argmin, lut_argmin_plain,
+                                                 nearest_probe)
     from patolette_tpu_torch.ops import lut
 
     lut.clear_grid_cache()
@@ -783,19 +855,19 @@ def kernel_k5(torch, rows):
         centers = _working_pixels(torch, p, 20 + p)
         valid = torch.ones(p, dtype=torch.bool, device=DEV)
         valid[-3:] = False
-        got = lut_argmin(grid, centers, valid, dtype)
-        twin = lut_argmin_plain(grid, centers, valid, dtype)
-        direct = assign_planar(grid, centers, valid)
-        torch.cuda.synchronize()
-        check(got.dtype == dtype and got.shape == (n,), f"K5[{p}] output")
-        check(torch.equal(got, twin),
-              f"K5[{p}] differs from its plain version")
-        check(torch.equal(got.to(torch.int32), direct),
-              f"K5[{p}] differs from K3 on the grid")
+        got, cand, mismatches = _k5_hold(torch, grid, centers, valid, dtype,
+                                         f"[{p}]")
         tables[p] = got
         ms = time_ms(lambda: lut_argmin(grid, centers, valid, dtype))
         plain = time_ms(lambda: lut_argmin_plain(grid, centers, valid, dtype),
                         reps=3, warm=1)
+        scans = {}
+        for scan, brick in (("brick", True), ("linear", False)):
+            _, counts = nearest_probe(grid, centers, valid, brick)
+            scans[scan] = dict(
+                candidates=_k5_candidates(torch, counts),
+                ms=time_ms(lambda: nearest_probe(grid, centers, valid, brick),
+                           reps=5, warm=1))
         x = torch.stack(grid, 1)
         cv = centers[valid]
         step = 1 << 20
@@ -805,14 +877,45 @@ def kernel_k5(torch, rows):
                               for s in range(0, n, step)])
 
         lib = time_ms(library, reps=3, warm=1)
-        b, by = bound_ms(n * 12 + p * 16 + n * got.element_size(),
-                         n * int(valid.sum()) * 7)
+        del x
+        # the table's least time: the grid read and the table written (the
+        # pruned scan does not do the brute force's 7 operations per code
+        # and valid entry; that count's time stands beside it)
+        b, by = bound_ms(n * 12 + p * 16 + n * got.element_size(), 0)
+        brute = bound_ms(0, n * int(valid.sum()) * 7)[0]
         rows.append(dict(name=name, shape=[n, p], out_dtype=str(dtype),
-                         max_abs_err=float((got != twin).sum()),
-                         k3_mismatches=int((got.to(torch.int32)
-                                            != direct).sum()),
-                         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                         bound_by=by, grid_build_cold_ms=grid_ms))
+                         max_abs_err=float(mismatches), ms=ms,
+                         plain_ms=plain,
+                         library_ms=lib, bound_ms=b, bound_by=by,
+                         brute_force_operations_ms=brute,
+                         candidates=cand, scans=scans,
+                         grid_build_cold_ms=grid_ms))
+
+    def grid_at(codes):
+        idx = torch.as_tensor(codes, device=DEV)
+        return torch.stack([g[idx] for g in grid], 1).cpu().numpy()
+
+    adversarial = {}
+    for kind, (cen, ok) in adversarial_palettes(grid_at, seed=1).items():
+        dtype = torch.uint8 if len(cen) <= 256 else torch.uint16
+        _, cand, _ = _k5_hold(torch, grid, torch.from_numpy(cen).to(DEV),
+                              torch.from_numpy(ok).to(DEV), dtype, kind)
+        adversarial[kind] = dict(entries=len(cen), valid=int(ok.sum()),
+                                 candidates=cand)
+    # a mesh rank's quarter (world 4, rank 1): its own slice of the grid
+    centers = _working_pixels(torch, 256, 20 + 256)
+    valid = torch.ones(256, dtype=torch.bool, device=DEV)
+    valid[-3:] = False
+    del grid
+    per = n // 4
+    quarter = lut.grid_ictcp_slice(2, DEV, 1, 4)
+    got, cand, _ = _k5_hold(torch, quarter, centers, valid, torch.uint8,
+                            "quarter")
+    check(torch.equal(got, tables[256][per:2 * per]),
+          "K5 on the quarter slice differs from the table's quarter")
+    emit({"phase": "kernel-k5-adversarial", "cases": adversarial,
+          "quarter": dict(rank=1, world=4, candidates=cand),
+          "identical": True})
     # the e2e phases' peak device memory counts what their calls hold
     lut.clear_grid_cache()
     return tables
@@ -1153,24 +1256,30 @@ K10_ROWS = (
 )
 
 
+def _k10_inputs(torch):
+    """K10's inputs by kind: bench.py's synthetic 4K image as three f32
+    planes, (N, 3) f32 and (N, 3) uint8, and all 2^24 codes."""
+    import numpy as np
+
+    img = synth_image_f32(W, H)
+    x32 = torch.from_numpy(img).to(DEV)
+    x8 = torch.from_numpy(np.round(img * 255.0).astype(np.uint8)).to(DEV)
+    return {"f32": tuple(x32[:, k].contiguous() for k in range(3)),
+            "f32x3": x32, "u8": x8,
+            "codes": torch.arange(1 << 24, dtype=torch.int32, device=DEV)}
+
+
 def kernel_k10(torch, rows):
     """K10 against its plain version on the card, bit for bit: every
     target in every working space from planar f32, (N, 3) f32 and (N, 3)
     uint8 4K pixels, the working-space targets from each space's working
     planes, and all 2^24 codes to ICtCp (also equal to the same codes sent
-    as uint8 pixels, as the LUT's grid must be)."""
-    import numpy as np
-
+    as uint8 pixels, as the LUT's grid must be); then kernel_k10_pow."""
     from patolette_tpu_torch.kernels.colorspace import (color_convert,
                                                         color_convert_plain)
 
-    n = W * H
-    img = synth_image_f32(W, H)
-    x32 = torch.from_numpy(img).to(DEV)
-    x8 = torch.from_numpy(np.round(img * 255.0).astype(np.uint8)).to(DEV)
-    planes = tuple(x32[:, k].contiguous() for k in range(3))
-    codes = torch.arange(1 << 24, dtype=torch.int32, device=DEV)
-    inputs = {"f32": planes, "f32x3": x32, "u8": x8, "codes": codes}
+    inputs = _k10_inputs(torch)
+    planes, codes = inputs["f32"], inputs["codes"]
 
     def differing(got, want):
         return sum(int((g != w).sum()) for g, w in zip(got, want))
@@ -1206,6 +1315,7 @@ def kernel_k10(torch, rows):
     check(not bad, f"K10 differs from its plain version: {bad}")
     emit({"phase": "kernel-k10-identity", "cases": len(diffs),
           "differing_values": sum(diffs.values())})
+    pows = kernel_k10_pow(torch)
 
     for name, kind, target, c, _, _ in K10_ROWS:
         x = inputs[kind]
@@ -1221,6 +1331,31 @@ def kernel_k10(torch, rows):
             differing(again, color_convert_plain(x, c, target))),
             ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
             bound_by=by, ops_per_pixel=[f32_ops, f64_ops]))
+        if name == K10_ROWS[0][0]:
+            rows[-1]["pow_fallback"] = pows
+
+
+def kernel_k10_pow(torch):
+    """K10's pow_exact against libdevice's pow over all 2^32 f32 inputs of
+    each exponent, counted on the card: no input may differ in any bit.
+    Returns the fallback rates, over the positive finite inputs and over
+    those whose power is an f32-normal number."""
+    from patolette_tpu_torch.kernels.colorspace import (POW_EXPONENTS,
+                                                        pow_exact_check)
+
+    out = {}
+    t0 = time.perf_counter()
+    for name, e in POW_EXPONENTS.items():
+        c = pow_exact_check(e, DEV)
+        check(c["differ"] == 0,
+              f"pow_exact differs from pow on {c['differ']} inputs of {name}")
+        out[name] = dict(c, fell_rate=c["fell"] / 0x7F7FFFFF,
+                         fell_normal_rate=c["fell_normal"] / max(1,
+                                                                 c["normal"]))
+    emit({"phase": "kernel-k10-pow", "inputs_each": 1 << 32,
+          "seconds": time.perf_counter() - t0, "exponents": out})
+    return {k: [v["fell_rate"], v["fell_normal_rate"]]
+            for k, v in out.items()}
 
 
 def _k2_feats(torch, colors, wm, cand, tab):
@@ -1240,21 +1375,27 @@ K9_SPLIT_SHAPES = ((H, W), (H // 4, W))
 
 
 def phase_split(torch):
-    """K1, K2, K4 and K9 alone: CUDA-event ms of a wrapper call, the
-    enqueue rate, each launch's device time (launch_split); index_add_
-    beside K1, and beside K2 on K2's own keys and precomputed features
-    (a yardstick of its accumulate part only). K1 at K1_SHAPES, K4 at P =
-    256 and P_LARGE, K2 at the random case and at the LQ loop's median
-    member share, K9 at K9_SPLIT_SHAPES. It runs after every e2e phase:
+    """K1, K2, K4, K9, K3, K5 and K10 alone: CUDA-event ms of a wrapper
+    call, the enqueue rate, each launch's device time (launch_split);
+    index_add_ beside K1, and beside K2 on K2's own keys and precomputed
+    features (a yardstick of its accumulate part only). K1 at K1_SHAPES,
+    K4 at P = 256 and P_LARGE, K2 at the random case and at the LQ loop's
+    median member share, K9 at K9_SPLIT_SHAPES, K3 on the synthetic 4K
+    image and on random pixels, K5 on the grid at P = 256 (u8) and 1024
+    (u16), K10 at each of K10_ROWS. It runs after every e2e phase:
     once torch.profiler has traced a process, each later launch in it
     pays CUPTI's cost on the host, which the LQ loop's laps would show.
     With ``--root DIR`` the kernels are another checkout's (a parent's,
     timed in turns with this one's)."""
+    from patolette_tpu_torch.kernels.assign import assign_planar
+    from patolette_tpu_torch.kernels.colorspace import color_convert
     from patolette_tpu_torch.kernels.kmeans import kmeans_step
     from patolette_tpu_torch.kernels.lq import (lq_candidates,
                                                 lq_candidates_plain)
+    from patolette_tpu_torch.kernels.lut import lut_argmin
     from patolette_tpu_torch.kernels.mbd import mbd
     from patolette_tpu_torch.kernels.segment import segment_sum
+    from patolette_tpu_torch.ops import lut
 
     n = N_SAMPLES
     x = _working_pixels(torch, n, 1)
@@ -1321,16 +1462,45 @@ def phase_split(torch):
               "ms": time_ms(lambda: mbd(img)),
               "enqueue_ms": enqueue_ms(lambda: mbd(img), calls=10),
               "split": launch_split(torch, lambda: mbd(img), reps=5)})
+    for kind in ("image", "random"):
+        _, chans, centers, valid = _k3_inputs(torch, kind)
+        emit({"phase": "split", "kernel": "assign_planar", "case": kind,
+              "shape": [W * H, 256],
+              "ms": time_ms(lambda: assign_planar(chans, centers, valid)),
+              "split": launch_split(
+                  torch, lambda: assign_planar(chans, centers, valid),
+                  reps=10)})
+    del chans
+    grid = lut.grid_ictcp(2, DEV)
+    for p, dtype in ((256, torch.uint8), (1024, torch.uint16)):
+        centers = _working_pixels(torch, p, 20 + p)
+        valid = torch.ones(p, dtype=torch.bool, device=DEV)
+        valid[-3:] = False
+        emit({"phase": "split", "kernel": "lut_argmin",
+              "shape": [lut.LUT_SIZE, p],
+              "ms": time_ms(lambda: lut_argmin(grid, centers, valid, dtype)),
+              "split": launch_split(
+                  torch, lambda: lut_argmin(grid, centers, valid, dtype),
+                  reps=10)})
+    del grid
+    lut.clear_grid_cache()
+    inputs = _k10_inputs(torch)
+    for name, kind, target, c, _, _ in K10_ROWS:
+        x = inputs[kind]
+        emit({"phase": "split", "kernel": "color_convert", "case": name,
+              "ms": time_ms(lambda: color_convert(x, c, target)),
+              "split": launch_split(
+                  torch, lambda: color_convert(x, c, target), reps=10)})
 
 
 LAPS_ROUNDS = 8
 
 
 def phase_laps(torch, rounds=LAPS_ROUNDS):
-    """The laps K2 and K9 feed, alone: the 4K uint8 LUT call (``lq``) and
-    the 4K default call (``saliency``, ``lq``), each warmed up, then
+    """The walls and laps of the 4K uint8 LUT call, the 4K default call and
+    bench.py's headline call (100 MP uint8), each warmed up, then
     ``rounds`` rounds of one plain call (wall, laps) and one synced call
-    (laps) of each, the two calls in turns. With ``--root DIR`` on another
+    (laps) of each, the calls in turns. With ``--root DIR`` on another
     checkout's package (a parent's), so that two trees can run in turns, a
     process each, in one call to the card."""
     import numpy as np
@@ -1344,12 +1514,17 @@ def phase_laps(torch, rounds=LAPS_ROUNDS):
                        dict(dither=False, tile_size=0, kmeans_niter=32,
                             color_space=pt.ColorSpace_ICtCp)),
         "e2e-default": (img, {}),
+        "e2e-headline": (synth_image_u8(HEADLINE_W, HEADLINE_H),
+                         dict(dither=False, tile_size=0, kmeans_niter=25,
+                              color_space=pt.ColorSpace_ICtCp)),
     }
+    shapes = {"e2e-headline": (HEADLINE_W, HEADLINE_H)}
 
     def run(name, **extra):
         colors, kw = calls[name]
+        w, h = shapes.get(name, (W, H))
         t0 = time.perf_counter()
-        ok, _, _, msg = pt.quantize(W, H, colors, 256, **kw, **extra)
+        ok, _, _, msg = pt.quantize(w, h, colors, 256, **kw, **extra)
         wall = time.perf_counter() - t0
         check(ok, f"{name} failed: {msg}")
         return wall, dict(pipeline.LAST_STAGE_TIMES)
@@ -1357,7 +1532,8 @@ def phase_laps(torch, rounds=LAPS_ROUNDS):
     for name in calls:
         run(name)
         run(name)
-    laps = ("lq", "saliency")
+    laps = ("lq", "saliency", "sample-in", "lut-build", "lut-build+pull",
+            "lut-map-host")
     out = {name: {k: [] for k in ("wall_s", *laps,
                                   *(f"{lap}_synced" for lap in laps))}
            for name in calls}
@@ -1879,9 +2055,11 @@ def phase_e2e_headline(torch, peak_4k):
     check(abs(peak - peak_4k) <= 0.1 * peak_4k,
           f"headline peak device bytes {peak} against {peak_4k} at 4K")
     torch.cuda.reset_peak_memory_stats()
-    ok, *_ = pt.quantize(w, h, img, p, dither=False, tile_size=0,
-                         kmeans_niter=iters, color_space=pt.ColorSpace_ICtCp,
-                         sync_stages=True)
+    with _K5Watch() as k5_seen:
+        ok, *_ = pt.quantize(w, h, img, p, dither=False, tile_size=0,
+                             kmeans_niter=iters,
+                             color_space=pt.ColorSpace_ICtCp,
+                             sync_stages=True)
     check(ok, "synced headline call failed")
     synced = dict(pipeline.LAST_STAGE_TIMES)
     best = min(walls)
@@ -1899,9 +2077,10 @@ def phase_e2e_headline(torch, peak_4k):
     p16 = 1024
     kernels.reset_launches()
     t0 = time.perf_counter()
-    ok, pal16, pmap16, msg = pt.quantize(
-        w, h, img, p16, dither=False, tile_size=0, kmeans_niter=iters,
-        color_space=pt.ColorSpace_ICtCp)
+    with _K5Watch(k5_seen):
+        ok, pal16, pmap16, msg = pt.quantize(
+            w, h, img, p16, dither=False, tile_size=0, kmeans_niter=iters,
+            color_space=pt.ColorSpace_ICtCp)
     wall16 = time.perf_counter() - t0
     check(ok, f"1024-colour headline quantize failed: {msg}")
     launches16 = dict(kernels.LAUNCHES)
@@ -1919,7 +2098,48 @@ def phase_e2e_headline(torch, peak_4k):
     emit({"phase": "e2e-headline-u16", "shape": [w, h], "palette": p16,
           "kmeans_niter": iters, "wall_s": wall16, "stage_ms": laps16,
           "launches": launches16, "cieluv_mse_1m": mse16})
+    kernel_k5_headline(torch, k5_seen)
     return img, launches16, mse
+
+
+class _K5Watch:
+    """Record the palette each K5 table build of the pipeline gets (by
+    output type) into ``seen``."""
+
+    def __init__(self, seen=None):
+        from patolette_tpu_torch.ops import lut
+
+        self.lut, self.real = lut, lut.lut_argmin
+        self.seen = {} if seen is None else seen
+
+    def __enter__(self):
+        def watched(grid, centers, valid, out_dtype):
+            self.seen[out_dtype] = (centers.clone(), valid.clone())
+            return self.real(grid, centers, valid, out_dtype)
+
+        self.lut.lut_argmin = watched
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.lut.lut_argmin = self.real
+
+
+def kernel_k5_headline(torch, seen):
+    """K5 on the headline calls' own palettes (256 colours, u8; 1024, u16)
+    on the cached grid: equal to its plain version and to K3 on all 2^24
+    codes, with the centres each warp scanned."""
+    from patolette_tpu_torch.ops import lut
+
+    check(set(seen) == {torch.uint8, torch.uint16},
+          f"the headline calls built tables of {sorted(map(str, seen))}")
+    grid = lut.grid_ictcp(2, DEV)
+    out = {}
+    for dtype, (centers, valid) in seen.items():
+        _, cand, _ = _k5_hold(torch, grid, centers, valid, dtype,
+                              f"headline {dtype}")
+        out[str(dtype)] = dict(entries=centers.shape[0],
+                               valid=int(valid.sum()), candidates=cand)
+    emit({"phase": "kernel-k5-headline", "palettes": out, "identical": True})
 
 
 def phase_routes(torch, img_100mp):
@@ -2802,6 +3022,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("candidates", "pow_fallback") if k in r},
         })
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": line})

@@ -7,29 +7,63 @@
 // cached grid; here the grid's three planes are the "pixels" of
 // nearest.cuh's scan (the one K3 runs), so the table equals K3's direct map
 // of the same grid bit for bit. The grid itself (sRGB -> working -> ICtCp
-// of each code) is torch glue (ops/lut.py): CUDA's pow differs from the
-// glue's f64-rounded power in the last bit, and the table would then
-// disagree with the direct map on some codes.
+// of each code) is K10's pass over the codes (ops/lut.py).
 //
-// Bound on the H100: f32 operations, seven per (code, valid entry): at
-// P = 256, 2^24 x 256 x 7 = 3.0e10, 0.45 ms at 67 TFLOP/s, against 201 MB
-// of grid and 16.8 MB of table (0.065 ms at 3.35 TB/s).
+// The scan is pruned (nearest.cuh): each warp's points are a small box of
+// the grid, and only the palette entries that can be nearest somewhere in
+// it are scanned, with the same arithmetic and the same first-index ties,
+// so the table is the brute-force table bit for bit. On the grid the warps
+// take bricks of 4 r x 8 g x 8 b codes, whose ICtCp boxes are tighter than
+// the linear layout's 1 r x 8 g x 32 b runs.
+//
+// Bound on the H100: device-memory bytes, 201 MB of grid read and 16.8 MB
+// (u8) or 33.5 MB (u16) of table written, ~0.065 / 0.070 ms at 3.35 TB/s;
+// the brute-force scan's 7 f32 operations per (code, valid entry), 3.0e10
+// at P = 256 (0.45 ms at 67 TFLOP/s), are no longer the work done. What
+// holds it above that bound is the list building: two passes over every
+// valid entry a warp, against a scan of the ~3 (P = 256) to ~6 (P = 1024)
+// entries a brick lists.
 #include <stdint.h>
 
 #include "nearest.cuh"
 
 // a, b, c: the (N,) grid planes; cent: (K, 4) rows [c0, c1, c2, |c|^2];
 // valid: (K,) int32; out: (N,) of out_bytes (1: u8, 2: u16) per entry.
+// N a multiple of 2^18 (the grid, or a rank's slice of it) takes the brick
+// layout.
 PT_EXPORT int pt_lut_argmin(const float* a, const float* b, const float* c,
                             const float* cent, const int* valid, int n, int k,
                             void* out, int out_bytes, void* stream) {
+  const bool brick = n % kBrickSlab == 0;
   if (out_bytes == 1 && k <= 256) {
-    return launch_nearest<uint8_t>(a, b, c, cent, valid, n, k,
-                                   (uint8_t*)out, stream);
+    return brick ? launch_nearest<uint8_t, true>(
+                       a, b, c, cent, valid, n, k, (uint8_t*)out, nullptr,
+                       stream)
+                 : launch_nearest<uint8_t, false>(
+                       a, b, c, cent, valid, n, k, (uint8_t*)out, nullptr,
+                       stream);
   }
   if (out_bytes == 2 && k <= 65536) {
-    return launch_nearest<uint16_t>(a, b, c, cent, valid, n, k,
-                                    (uint16_t*)out, stream);
+    return brick ? launch_nearest<uint16_t, true>(
+                       a, b, c, cent, valid, n, k, (uint16_t*)out, nullptr,
+                       stream)
+                 : launch_nearest<uint16_t, false>(
+                       a, b, c, cent, valid, n, k, (uint16_t*)out, nullptr,
+                       stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// A measurement of the scan, not on any path: the labels of one launch as
+// int32, and per warp the number of centres it scanned (its list's
+// length), in the brick layout (brick != 0, K5's on the grid) or the
+// linear one (K3's). counts: one int per warp.
+PT_EXPORT int pt_nearest_probe(const float* a, const float* b, const float* c,
+                               const float* cent, const int* valid, int n,
+                               int k, int brick, int* labels, int* counts,
+                               void* stream) {
+  return brick ? launch_nearest<int, true, true>(a, b, c, cent, valid, n, k,
+                                                 labels, counts, stream)
+               : launch_nearest<int, false, true>(a, b, c, cent, valid, n, k,
+                                                  labels, counts, stream);
 }

@@ -43,6 +43,7 @@ LIB_NAME = "libpatolette_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C entry points: name -> argument types (every one returns an int error).
 SIGNATURES = {
     "pt_segment_sum": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -56,7 +57,9 @@ SIGNATURES = {
     "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "pt_mbd": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "pt_lut_argmin": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
+    "pt_nearest_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "pt_color_convert": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
+    "pt_pow_exact_check": (_D, _P, _P),
     "pt_rle_encode_u8_v2": (_P, _I, _P, _P, _P, _P, _L, _P),
     "pt_rle_encode_u8": (_P, _I, _P, _P, _P, _L, _P),
     "pt_rle_encode_u16_v2": (_P, _I, _P, _P, _P, _P, _L, _P),

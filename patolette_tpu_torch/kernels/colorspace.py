@@ -13,9 +13,19 @@ Inputs: three (N,) f32 planes; an (N, 3) f32 or uint8 array (each byte
 times f32(1/255), as the upload normalises it); or (N,) int32 codes
 ``r << 16 | g << 8 | b``. All are sRGB except for the two ``working_to_*``
 targets, which take working-space f32. Output: three (N,) f32 planes.
+
+The kernel's powers are ``pow_exact``: a short f64 evaluation, rounded to
+f32 where Ziv's test shows that libdevice's ``pow`` rounds to the same f32,
+and ``pow`` itself elsewhere. :func:`pow_exact_model` is that function in
+numpy (the same tables and f64 operations), for the tests;
+:func:`pow_exact_check` counts, on the card, the f32 inputs of one exponent
+where the kernel's ``pow_exact`` and ``pow`` differ.
 """
 
 from __future__ import annotations
+
+import functools
+import re
 
 import numpy as np
 import torch
@@ -120,3 +130,90 @@ def color_convert(x, color_space, target):
     build.check(err, "color_convert")
     kernels.LAUNCHES["color_convert"] += 1
     return out
+
+
+def _exp(e):
+    """An exponent as the kernel's EXP(e): the f32 value, widened."""
+    return float(np.float32(e))
+
+
+# The exponents of the kernel's powers (csrc/colorspace.cu): the sRGB
+# decode and encode, the PQ curve's four, and CIELuv's and CIELAB's cube
+# root.
+POW_EXPONENTS = {
+    "2.4": _exp(2.4), "1/2.4": _exp(1.0 / 2.4),
+    "1/m2": _exp(1.0 / cs.PQ_M2), "1/m1": _exp(1.0 / cs.PQ_M1),
+    "m1": _exp(cs.PQ_M1), "m2": _exp(cs.PQ_M2), "1/3": _exp(1.0 / 3.0),
+}
+_HEX = re.compile(r"-?0x[0-9a-fA-F]+\.[0-9a-fA-F]*p[+-]?\d+")
+
+
+@functools.lru_cache(maxsize=None)
+def pow_tables():
+    """pow_exact's tables as the kernel's source spells them: (log (128, 2)
+    rows [c_i, -log2 c_i], exp2 (128,), log polynomial (6,), exp
+    polynomial (5,)), float64."""
+    text = (build.CSRC / "colorspace.cu").read_text()
+
+    def block(name):
+        body = text[text.index(name):]
+        body = body[body.index("{"):body.index("};")]
+        return np.array([float.fromhex(v) for v in _HEX.findall(body)])
+
+    return (block("kLogTab[128]").reshape(128, 2), block("kExp2Tab[128]"),
+            block("kLogPoly[6]"), block("kExpPoly[5]"))
+
+
+def pow_exact_model(x, e):
+    """The kernel's ``pow_exact(x, e)`` in numpy: (f32 results, bool mask
+    of the inputs where it falls back to ``pow``, whose value here is
+    numpy's f64 power rounded to f32). ``x`` f32, ``e`` a float64
+    exponent of :data:`POW_EXPONENTS`."""
+    log, exp2, lp, ep = pow_tables()
+    x = np.asarray(x, np.float32)
+    xd = x.astype(np.float64)
+    bits = xd.view(np.int64)
+    k = ((bits >> 52) - 1023).astype(np.float64)
+    m = ((bits & 0x000FFFFFFFFFFFFF) | 0x3FF0000000000000).view(np.float64)
+    i = (bits >> 45) & 127
+    with np.errstate(all="ignore"):
+        r = m * log[i, 0] - 1.0
+        p = np.full_like(r, lp[5])
+        for a in lp[4::-1]:
+            p = p * r + a
+        p = p * r
+        t = e * (k + (log[i, 1] + p))
+        inside = np.abs(t) < 150.0
+        t = np.where(inside, t, 0.0)
+        n = np.rint(t * 128.0).astype(np.int64)
+        g = t - n * 0.0078125
+        q = np.full_like(g, ep[4])
+        for b in ep[3::-1]:
+            q = q * g + b
+        q = q * g + 1.0
+        scale = (((n >> 7) + 1023) << 52).view(np.float64)
+        y = np.where(inside, (exp2[n & 127] * q) * scale, 0.0)
+        yb = y.view(np.int64)
+        ex = (yb >> 52) - 1023
+        low = (yb & 0x1FFFFFFF) - (1 << 28)
+        clear = (ex >= -126) & (ex <= 127) & (np.abs(low) > (1 << 13))
+        fast = (x > 0) & (x < np.inf) & clear
+        out = np.where(fast, y.astype(np.float32),
+                       np.power(xd, e).astype(np.float32))
+    out = np.where(x == 0, np.float32(0), out)
+    return out, ~fast & (x != 0)
+
+
+def pow_exact_check(e, device="cuda"):
+    """The kernel's pow_exact against pow over all 2^32 f32 inputs of the
+    exponent ``e``, counted on the card (a check, on no path): {"differ":
+    inputs whose bits differ, "fell": positive finite inputs that fell
+    back to pow, "fell_normal" and "normal": those and all positive finite
+    inputs, among the ones whose power is an f32-normal number}."""
+    counts = torch.zeros((4,), dtype=torch.int64, device=device)
+    build.require_cuda("pow_exact_check", counts)
+    err = build.library().pt_pow_exact_check(float(e), build.ptr(counts),
+                                             build.stream())
+    build.check(err, "pow_exact_check")
+    return dict(zip(("differ", "fell", "fell_normal", "normal"),
+                    counts.tolist()))
