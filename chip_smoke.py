@@ -14,7 +14,17 @@ Phases, each printing one JSON line:
      as must K5's tables at the adversarial palettes and on a mesh rank's
      quarter slice (kernel-k5-adversarial), with the centres each warp's
      pruned scan listed (mean, max; K3's on the 4K synthetic image and
-     random pixels too) and K5's brick layout timed beside the linear one;
+     random pixels too, in K3's sorted layout of 8192-point tiles and, as
+     a sweep, in 4096-point tiles and the linear layout, each timed) and
+     K5's brick layout timed beside the linear one; K3 bit for bit on its edge cases
+     (kernel-k3-cases: 1x1, 8x1, 1x8, 5x3, one centre, duplicates and
+     exact ties, invalid slots, NaN and +-inf coordinates, non-finite
+     centres, a constant image, a ragged last tile); K8 at the 4K shape at
+     each of its group sizes (the sweep behind the wrapper's choice, each
+     bit for bit) and on its cases (kernel-k8-cases: one and two entries,
+     the tiled walk at 4096 entries, one lane at 5x3, lanes of one step,
+     1x1, 8x1, 1x8, n < 32, a short last lane, duplicated entries,
+     invalid slots; every group size and the wrapper, twice, bit for bit);
      K10 must equal its plain version bit for bit in every target, input
      kind and working space, and on all 2^24 codes, and its pow_exact must
      equal libdevice's pow on all 2^32 f32 inputs of each of its seven
@@ -97,9 +107,10 @@ Phases, each printing one JSON line:
      MESH4_DEFAULT_RATIO of world 1's at each seed of MESH4_SEEDS (the
      call without saliency is reported beside them);
   9. golden: the 96x64 inputs against tests/golden/quantize_golden.npz;
- 10. split: K1, K2, K4, K9, K3, K5 and K10 alone at the kernels phase's
-     shapes (K9 also at a mesh-4 rank's strip), each launch's device time
-     (torch.profiler) and the enqueue rate, index_add_ beside K1 and, on
+ 10. split: K1, K2, K4, K9, K3, K8, K5 and K10 alone at the kernels
+     phase's shapes (K9 also at a mesh-4 rank's strip), each launch's
+     device time (torch.profiler) and the enqueue rate, index_add_ beside
+     K1 and, on
      K2's keys and precomputed features, beside K2; last, because a traced
      process pays CUPTI's cost on every later launch.
 With ``--routes`` (a measurement, not a check) it then times the sampled
@@ -111,8 +122,8 @@ with ``--root DIR`` on the kernels of the checkout at DIR (a parent's,
 unpacked with git archive), so two versions can be timed in turns in one
 call.
 With ``--laps`` it runs only the device, build and laps phases (the
-uint8 LUT call's and the default call's walls and laps, several rounds),
-with ``--root DIR`` too.
+uint8 LUT call's, the default call's, the headline call's and the 100 MP
+strip dither's walls and laps, several rounds), with ``--root DIR`` too.
 With ``--profile`` the e2e phases (and e2e-mesh-u8) also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
 DIR`` the ptxas report, the profiler tables and every JSON line
@@ -162,6 +173,13 @@ def _out_dir():
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 33.5e12
+# f32 instructions a second (132 SMs x 128 lanes x 1.98 GHz): the rate of
+# operations that cannot fuse into an FMA, half the FMA-counted peak
+PEAK_F32_INSTR = 33.5e12
+# Dependent-issue latencies in cycles that K8's chain count assumes: an f32
+# operation, a warp shuffle, a shared-memory load (Hopper, the same as on
+# Ampere; not measured here).
+LAT_F32, LAT_SHFL, LAT_LDS = 4, 23, 23
 
 
 def emit(obj):
@@ -620,37 +638,123 @@ def _k3_inputs(torch, kind):
     return x, chans, centers, valid
 
 
+# nearest_probe's layouts timed and counted beside K3's own ("sorted",
+# tiles of 8192 points): tiles of 4096, and the linear layout (runs of
+# image rows, as K5 scans points off the grid)
+K3_LAYOUTS = ("sorted", "sorted4096", "linear")
+
+
 def kernel_k3(torch, rows):
     """K3 at the 4K direct map's shape against its plain version (random
-    pixels); on those and on bench.py's synthetic image, the centres each
-    warp's pruned scan listed (the probe)."""
+    pixels and bench.py's synthetic image); on both, for each of
+    K3_LAYOUTS, the centres each warp's pruned scan listed (mean, max) and
+    the probe's time (the sweep that fixed K3's tile), its labels equal to
+    K3's."""
     from patolette_tpu_torch.kernels.assign import (assign_planar,
                                                     assign_planar_plain)
     from patolette_tpu_torch.kernels.lut import nearest_probe
 
-    candidates = {}
+    candidates, layouts, twins = {}, {}, {}
     for kind in ("image", "random"):
         x, chans, centers, valid = _k3_inputs(torch, kind)
         got = assign_planar(chans, centers, valid)
-        labels, counts = nearest_probe(chans, centers, valid, brick=False)
+        again = assign_planar(chans, centers, valid)
+        twin = assign_planar_plain(chans, centers, valid)
         torch.cuda.synchronize()
-        check(torch.equal(labels, got), f"K3 {kind}: the probe differs")
-        candidates[kind] = _k5_candidates(torch, counts)
+        check(torch.equal(got, twin), f"K3 {kind} differs from its plain "
+              f"version at {int((got != twin).sum())} pixels")
+        check(torch.equal(got, again), f"K3 {kind} not deterministic")
+        twins[kind] = int((got != twin).sum())
+        layouts[kind] = {}
+        for layout in K3_LAYOUTS:
+            labels, counts = nearest_probe(chans, centers, valid, layout)
+            torch.cuda.synchronize()
+            check(torch.equal(labels, got),
+                  f"K3 {kind}: the {layout} probe differs")
+            layouts[kind][layout] = dict(
+                candidates=_k5_candidates(torch, counts),
+                ms=time_ms(lambda: nearest_probe(chans, centers, valid,
+                                                 layout)))
+        candidates[kind] = layouts[kind]["sorted"]["candidates"]
     n, p = W * H, 256
-    twin = assign_planar_plain(chans, centers, valid)
-    torch.cuda.synchronize()
-    agree = _agreement(got, twin)
-    check(agree == 1.0, f"K3 labels agree only {agree}")
     ms = time_ms(lambda: assign_planar(chans, centers, valid))
     plain = time_ms(lambda: assign_planar_plain(chans, centers, valid),
                     reps=10, warm=1)
     cv = centers[valid]
     lib = time_ms(lambda: torch.cdist(x, cv).argmin(1), reps=10, warm=1)
-    b, by = bound_ms(n * 12 + p * 16 + n * 4, n * int(valid.sum()) * 7)
-    rows.append(dict(name="assign_planar", shape=[n, p], label_agreement=agree,
-                     max_abs_err=float((got != twin).sum()), ms=ms,
+    # the pruned scan's least time: pixels read, labels written; beside it
+    # the brute force's 7 unfused operations per (pixel, valid centre) at
+    # the f32 instruction rate
+    b, by = bound_ms(n * 12 + p * 16 + n * 4, 0)
+    brute = n * int(valid.sum()) * 7 / PEAK_F32_INSTR * 1e3
+    rows.append(dict(name="assign_planar", shape=[n, p], label_agreement=1.0,
+                     max_abs_err=float(twins["random"]), ms=ms,
                      plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
-                     candidates=candidates))
+                     brute_force_operations_ms=brute,
+                     candidates=candidates, layouts=layouts))
+
+
+def _k3_case(torch, name):
+    """(planes, centres, valid) of one of K3_CASES, on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(len(name))
+    shape = {"1x1": 1, "8x1": 8, "1x8": 8, "5x3": 15}
+    n = shape.get(name, 4096 * 3 + 17)
+    x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    x[:, 1:] -= 0.5
+    p = 1 if name == "p1" else 64
+    cen = x[rng.integers(0, n, p)].copy()
+    ok = np.ones(p, bool)
+    if name == "duplicates":
+        cen[p // 2:] = cen[:p // 2][::-1]
+        x[::3] = cen[rng.integers(0, p, len(x[::3]))]  # exact ties
+    elif name == "invalid":
+        ok[::2] = False
+    elif name == "constant":
+        x[:] = x[0]
+    elif name == "nonfinite":
+        ok[0] = False
+        for i, v in enumerate((np.nan, np.inf, -np.inf)):
+            x[i::97, i] = v
+        x[5, :] = np.nan
+        cen[3, 1] = 0.0  # inf * 0: a NaN distance, the first one wins
+    elif name == "nonfinite-centre":
+        cen[7] = (np.inf, 0.0, 0.0)
+        cen[9, 2] = np.nan
+    planes = tuple(torch.from_numpy(x[:, i].copy()).to(DEV)
+                   for i in range(3))
+    return planes, torch.from_numpy(cen).to(DEV), torch.from_numpy(ok).to(DEV)
+
+
+# K3's edge cases (kernel-k3-cases), each equal to the plain version bit
+# for bit: the degenerate shapes, one centre, duplicated centres and exact
+# ties, every other slot invalid, NaN and +-inf coordinates (slot 0
+# invalid), a centre with inf and one with NaN, a constant image, and N
+# not a multiple of the tile (3 tiles and 17 points)
+K3_CASES = ("1x1", "8x1", "1x8", "5x3", "p1", "duplicates", "invalid",
+            "nonfinite", "nonfinite-centre", "constant", "ragged")
+
+
+def kernel_k3_cases(torch):
+    from patolette_tpu_torch.kernels.assign import (assign_planar,
+                                                    assign_planar_plain)
+    from patolette_tpu_torch.kernels.lut import nearest_probe
+
+    out = {}
+    for name in K3_CASES:
+        planes, cen, ok = _k3_case(torch, name)
+        got = assign_planar(planes, cen, ok)
+        twin = assign_planar_plain(planes, cen, ok)
+        wide, counts = nearest_probe(planes, cen, ok, "sorted4096")
+        torch.cuda.synchronize()
+        differ = int((got != twin).sum())
+        check(differ == 0, f"K3 case {name}: {differ} labels differ")
+        check(torch.equal(wide, got), f"K3 case {name}: sorted4096 differs")
+        out[name] = dict(n=planes[0].shape[0], centres=cen.shape[0],
+                         valid=int(ok.sum()),
+                         candidates=_k5_candidates(torch, counts))
+    emit({"phase": "kernel-k3-cases", "cases": out, "identical": True})
 
 
 def kernel_k4(torch, rows):
@@ -814,8 +918,8 @@ def _k5_hold(torch, grid, centers, valid, dtype, what):
     got = lut_argmin(grid, centers, valid, dtype)
     twin = lut_argmin_plain(grid, centers, valid, dtype)
     direct = assign_planar(grid, centers, valid)
-    labels, counts = nearest_probe(grid, centers, valid,
-                                   brick=n % BRICK_SLAB == 0)
+    labels, counts = nearest_probe(
+        grid, centers, valid, "brick" if n % BRICK_SLAB == 0 else "linear")
     torch.cuda.synchronize()
     check(got.dtype == dtype and got.shape == (n,), f"K5 {what}: output")
     mismatches = int((got != twin).sum())
@@ -862,11 +966,11 @@ def kernel_k5(torch, rows):
         plain = time_ms(lambda: lut_argmin_plain(grid, centers, valid, dtype),
                         reps=3, warm=1)
         scans = {}
-        for scan, brick in (("brick", True), ("linear", False)):
-            _, counts = nearest_probe(grid, centers, valid, brick)
+        for scan in ("brick", "linear"):
+            _, counts = nearest_probe(grid, centers, valid, scan)
             scans[scan] = dict(
                 candidates=_k5_candidates(torch, counts),
-                ms=time_ms(lambda: nearest_probe(grid, centers, valid, brick),
+                ms=time_ms(lambda: nearest_probe(grid, centers, valid, scan),
                            reps=5, warm=1))
         x = torch.stack(grid, 1)
         cv = centers[valid]
@@ -1094,21 +1198,72 @@ def _linear_image(torch, w, h):
         tuple(x[:, k] for k in range(3))))
 
 
+def sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi), for K8's chain bound."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def k8_chain_cycles(k, group):
+    """The least latency of one K8 step (csrc/dither.cu) in cycles, with
+    every independent operation issued at once: (px + S) * cw (2 dependent
+    f32 operations), the shuffles of q (1), one distance (5: a product, two
+    sums, the doubling, the difference), the minimum of a thread's K / G
+    entries as a tree (log2 levels of 2), log2(G) shuffle levels (a shuffle
+    and 2 operations each), the raw colour's shared-memory load, the error,
+    its product and the sum (3)."""
+    import math
+
+    per = max(1, -(-k // group))
+    levels = math.ceil(math.log2(per)) if per > 1 else 0
+    return (LAT_F32 * (2 + 5 + 2 * levels + 3) + LAT_SHFL
+            + int(math.log2(group)) * (LAT_SHFL + 2 * LAT_F32) + LAT_LDS)
+
+
+def _k8_palette(torch, ch, p, kind, seed=11):
+    """(linear Rec2020 entries (p, 3), valid (p,)) drawn from the pixels:
+    "random" (the last 3 slots invalid when p > 3), "duplicates" (the
+    first half again in reverse: exact ties), "invalid" (every other slot,
+    slot 0 among them)."""
+    n = ch[0].shape[0]
+    g = torch.Generator(device=DEV).manual_seed(seed + p)
+    pick = torch.randint(0, n, (p,), generator=g, device=DEV)
+    if kind == "duplicates":
+        pick = torch.cat([pick[:p // 2], pick[:p // 2].flip(0)])
+    pal = torch.stack([c[pick] for c in ch], 1)
+    valid = torch.ones(p, dtype=torch.bool, device=DEV)
+    if kind == "invalid":
+        valid[::2] = False
+    elif p > 3:
+        valid[-3:] = False
+    return pal, valid
+
+
+# K8 threads a lane swept at the 4K shape (the wrapper's rule comes from
+# this sweep)
+K8_GROUPS = (4, 8, 16, 32)
+
+
 def kernel_k8(torch, rows):
+    """K8 at the default call's 4K shape (256 colours, segment 4096)
+    against its plain version, at each of K8_GROUPS (bit for bit, timed),
+    and its bound: the larger of the operations and the chain (segment
+    steps of k8_chain_cycles at the highest SM clock)."""
     from patolette_tpu_torch.kernels.dither import (dither_scan,
+                                                    dither_scan_group,
                                                     dither_scan_plain,
-                                                    lane_shape,
+                                                    group_for, lane_shape,
                                                     palette_table)
     from patolette_tpu_torch.ops import hilbert
 
     w, h, p, seg = W, H, 256, 4096
     n = w * h
     ch = _linear_image(torch, w, h)
-    g = torch.Generator(device=DEV).manual_seed(11)
-    pick = torch.randint(0, n, (p,), generator=g, device=DEV)
-    pal = torch.stack([c[pick] for c in ch], 1)
-    valid = torch.ones(p, dtype=torch.bool, device=DEV)
-    valid[-3:] = False
+    pal, valid = _k8_palette(torch, ch, p, "random")
     table = palette_table(pal, valid)
     perm = hilbert.pixel_visit_order(w, h, DEV)
     got = dither_scan(ch, perm, table, seg)
@@ -1119,17 +1274,84 @@ def kernel_k8(torch, rows):
     check(agree == 1.0, f"K8 labels agree only {agree}")
     check(torch.equal(got, again), "K8 not deterministic")
     check(not bool((got >= p - 3).any()), "K8 chose an invalid slot")
+    groups = {}
+    for g in K8_GROUPS:
+        other = dither_scan_group(ch, perm, table, seg, g)
+        torch.cuda.synchronize()
+        check(torch.equal(other, got), f"K8 at G = {g} differs")
+        groups[g] = time_ms(
+            lambda: dither_scan_group(ch, perm, table, seg, g))
     ms = time_ms(lambda: dither_scan(ch, perm, table, seg))
     plain = time_ms(lambda: dither_scan_plain(ch, perm, table, seg), reps=1,
                     warm=0)
     kv = int(valid.sum())
+    group = group_for(p)
+    cycles = k8_chain_cycles(p, group)
+    clock = sm_clock_hz()
+    chain = seg * cycles / clock * 1e3
     b, by = bound_ms(n * (12 + 4 + 4) + p * 32,
                      n * (7 * kv + 2 * 3 * 16 + 9))
+    if chain > b:
+        b, by = chain, "operations"
     rows.append(dict(name="dither_scan", shape=[n, p, seg],
                      lanes=lane_shape(n, seg)[1], label_agreement=agree,
                      max_abs_err=float((got != twin).sum()), ms=ms,
                      plain_ms=plain, library_ms=None, bound_ms=b,
-                     bound_by=by))
+                     bound_by=by, chain_cycles_a_step=cycles,
+                     sm_clock_mhz=clock / 1e6, chain_ms=chain, group=group,
+                     groups_ms=groups))
+
+
+# K8's cases (kernel-k8-cases): (name, width, height, entries, segment,
+# palette kind), each bit for bit equal to the plain version at every G
+# and through the wrapper, twice: one and two entries, the tiled walk
+# (4096 entries), one lane (segment 0) at 5x3, lanes of one step, 1x1,
+# 8x1, 1x8, n < 32, a short last lane (4096 + 904), lanes of 37 steps,
+# duplicated entries (exact ties), every other slot invalid
+K8_CASES = (
+    ("p1", 96, 64, 1, 4096, "random"),
+    ("p2", 96, 64, 2, 4096, "random"),
+    ("p4096-tiled", 256, 256, 4096, 4096, "random"),
+    ("segment0-5x3", 5, 3, 16, 0, "random"),
+    ("segment1", 96, 64, 16, 1, "random"),
+    ("1x1", 1, 1, 16, 4096, "random"),
+    ("8x1", 8, 1, 16, 4096, "random"),
+    ("1x8", 1, 8, 16, 4096, "random"),
+    ("7x3", 7, 3, 16, 4096, "random"),
+    ("short-last-lane", 100, 50, 256, 4096, "random"),
+    ("segment37", 96, 64, 256, 37, "random"),
+    ("duplicates", 96, 64, 256, 4096, "duplicates"),
+    ("invalid", 96, 64, 256, 4096, "invalid"),
+)
+
+
+def kernel_k8_cases(torch):
+    from patolette_tpu_torch.kernels.dither import (dither_scan,
+                                                    dither_scan_group,
+                                                    dither_scan_plain,
+                                                    group_for, palette_table)
+    from patolette_tpu_torch.ops import hilbert
+
+    out = {}
+    for name, w, h, p, seg, kind in K8_CASES:
+        ch = _linear_image(torch, w, h)
+        pal, valid = _k8_palette(torch, ch, p, kind)
+        table = palette_table(pal, valid)
+        perm = hilbert.pixel_visit_order(w, h, DEV)
+        twin = dither_scan_plain(ch, perm, table, seg)
+        got = dither_scan(ch, perm, table, seg)
+        again = dither_scan(ch, perm, table, seg)
+        others = {g: dither_scan_group(ch, perm, table, seg, g)
+                  for g in K8_GROUPS}
+        torch.cuda.synchronize()
+        differ = int((got != twin).sum())
+        check(differ == 0, f"K8 case {name}: {differ} labels differ")
+        check(torch.equal(got, again), f"K8 case {name}: not deterministic")
+        for g, o in others.items():
+            check(torch.equal(o, twin), f"K8 case {name} at G = {g} differs")
+        out[name] = dict(n=w * h, entries=p, valid=int(valid.sum()),
+                         segment=seg, group=group_for(p))
+    emit({"phase": "kernel-k8-cases", "cases": out, "identical": True})
 
 
 def _mbd_image(torch, rows_, cols, kind="texture"):
@@ -1375,13 +1597,14 @@ K9_SPLIT_SHAPES = ((H, W), (H // 4, W))
 
 
 def phase_split(torch):
-    """K1, K2, K4, K9, K3, K5 and K10 alone: CUDA-event ms of a wrapper
+    """K1, K2, K4, K9, K3, K8, K5 and K10 alone: CUDA-event ms of a wrapper
     call, the enqueue rate, each launch's device time (launch_split);
     index_add_ beside K1, and beside K2 on K2's own keys and precomputed
     features (a yardstick of its accumulate part only). K1 at K1_SHAPES,
     K4 at P = 256 and P_LARGE, K2 at the random case and at the LQ loop's
     median member share, K9 at K9_SPLIT_SHAPES, K3 on the synthetic 4K
-    image and on random pixels, K5 on the grid at P = 256 (u8) and 1024
+    image and on random pixels, K8 at the default call's 4K shape, K5 on
+    the grid at P = 256 (u8) and 1024
     (u16), K10 at each of K10_ROWS. It runs after every e2e phase:
     once torch.profiler has traced a process, each later launch in it
     pays CUPTI's cost on the host, which the LQ loop's laps would show.
@@ -1471,6 +1694,18 @@ def phase_split(torch):
                   torch, lambda: assign_planar(chans, centers, valid),
                   reps=10)})
     del chans
+    from patolette_tpu_torch.kernels.dither import dither_scan, palette_table
+    from patolette_tpu_torch.ops import hilbert
+
+    ch = _linear_image(torch, W, H)
+    table = palette_table(*_k8_palette(torch, ch, 256, "random"))
+    perm = hilbert.pixel_visit_order(W, H, DEV)
+    emit({"phase": "split", "kernel": "dither_scan",
+          "shape": [W * H, 256, 4096],
+          "ms": time_ms(lambda: dither_scan(ch, perm, table, 4096)),
+          "split": launch_split(
+              torch, lambda: dither_scan(ch, perm, table, 4096), reps=10)})
+    del ch, perm
     grid = lut.grid_ictcp(2, DEV)
     for p, dtype in ((256, torch.uint8), (1024, torch.uint16)):
         centers = _working_pixels(torch, p, 20 + p)
@@ -1497,8 +1732,9 @@ LAPS_ROUNDS = 8
 
 
 def phase_laps(torch, rounds=LAPS_ROUNDS):
-    """The walls and laps of the 4K uint8 LUT call, the 4K default call and
-    bench.py's headline call (100 MP uint8), each warmed up, then
+    """The walls and laps of the 4K uint8 LUT call, the 4K default call,
+    bench.py's headline call (100 MP uint8) and the same image dithered on
+    strips (strip-headline), each warmed up, then
     ``rounds`` rounds of one plain call (wall, laps) and one synced call
     (laps) of each, the calls in turns. With ``--root DIR`` on another
     checkout's package (a parent's), so that two trees can run in turns, a
@@ -1518,7 +1754,11 @@ def phase_laps(torch, rounds=LAPS_ROUNDS):
                          dict(dither=False, tile_size=0, kmeans_niter=25,
                               color_space=pt.ColorSpace_ICtCp)),
     }
-    shapes = {"e2e-headline": (HEADLINE_W, HEADLINE_H)}
+    calls["e2e-strip-headline"] = (calls["e2e-headline"][0],
+                                   dict(dither=True, tile_size=0,
+                                        kmeans_niter=25))
+    shapes = {"e2e-headline": (HEADLINE_W, HEADLINE_H),
+              "e2e-strip-headline": (HEADLINE_W, HEADLINE_H)}
 
     def run(name, **extra):
         colors, kw = calls[name]
@@ -1533,7 +1773,7 @@ def phase_laps(torch, rounds=LAPS_ROUNDS):
         run(name)
         run(name)
     laps = ("lq", "saliency", "sample-in", "lut-build", "lut-build+pull",
-            "lut-map-host")
+            "lut-map-host", "dither")
     out = {name: {k: [] for k in ("wall_s", *laps,
                                   *(f"{lap}_synced" for lap in laps))}
            for name in calls}
@@ -1562,6 +1802,7 @@ def phase_kernels(torch):
     kernel_k1_adversarial(torch)
     kernel_k2(torch, rows)
     kernel_k3(torch, rows)
+    kernel_k3_cases(torch)
     kernel_k4(torch, rows)
     kernel_k4_adversarial(torch)
     kernel_k4_large(torch, rows)
@@ -1570,6 +1811,7 @@ def phase_kernels(torch):
     kernel_k6_pull(torch, rows, tables)
     kernel_k7(torch, rows)
     kernel_k8(torch, rows)
+    kernel_k8_cases(torch)
     kernel_k9(torch, rows)
     kernel_k10(torch, rows)
     # the e2e phases' peak device memory counts what their calls hold

@@ -56,14 +56,27 @@ PT_EXPORT int pt_lut_argmin(const float* a, const float* b, const float* c,
 
 // A measurement of the scan, not on any path: the labels of one launch as
 // int32, and per warp the number of centres it scanned (its list's
-// length), in the brick layout (brick != 0, K5's on the grid) or the
-// linear one (K3's). counts: one int per warp.
+// length), in the layout `layout`: 0 linear (K5 off the grid), 1 brick
+// (K5 on the grid), 2 sorted with 1024 threads a block (tiles of 8192
+// points: K3's), 3 sorted with 512 (4096 points). counts: one int per warp.
 PT_EXPORT int pt_nearest_probe(const float* a, const float* b, const float* c,
                                const float* cent, const int* valid, int n,
-                               int k, int brick, int* labels, int* counts,
+                               int k, int layout, int* labels, int* counts,
                                void* stream) {
-  return brick ? launch_nearest<int, true, true>(a, b, c, cent, valid, n, k,
-                                                 labels, counts, stream)
-               : launch_nearest<int, false, true>(a, b, c, cent, valid, n, k,
-                                                  labels, counts, stream);
+  switch (layout) {
+    case 0:
+      return launch_nearest<int, false, true>(a, b, c, cent, valid, n, k,
+                                              labels, counts, stream);
+    case 1:
+      return launch_nearest<int, true, true>(a, b, c, cent, valid, n, k,
+                                             labels, counts, stream);
+    case 2:
+      return launch_nearest_sorted<1024, true>(a, b, c, cent, valid, n, k,
+                                               labels, counts, stream);
+    case 3:
+      return launch_nearest_sorted<512, true>(a, b, c, cent, valid, n, k,
+                                              labels, counts, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -54,7 +54,7 @@ SIGNATURES = {
                           _P),
     "pt_kmeans_update": (_P, _P, _P, _I, _P, _P, _P),
     "pt_hilbert_keys": (_L, _I, _I, _P, _P),
-    "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "pt_mbd": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "pt_lut_argmin": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
     "pt_nearest_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),

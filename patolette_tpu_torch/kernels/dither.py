@@ -89,13 +89,40 @@ def dither_scan_plain(channels, perm, table, segment):
     return out[:n]
 
 
+# Threads a lane for a palette of up to so many entries (csrc/dither.cu's
+# G): each thread then holds at most 32 entries in registers. At 256
+# entries chip_smoke.py's sweep at the 4K shape put G = 8 first (1.58–1.67
+# ms; 16: 1.68–1.80, 32: 2.44–2.58, 4, from shared memory: 4.41–4.50;
+# NVIDIA H100 80GB HBM3, 700 W).
+GROUPS = ((256, 8), (512, 16))
+GROUP_MAX = 32
+
+
+def group_for(k):
+    """csrc/dither.cu's threads a lane for a palette of ``k`` entries."""
+    return next((g for top, g in GROUPS if k <= top), GROUP_MAX)
+
+
 def dither_scan(channels, perm, table, segment):
     """Palette index (N,) int32 of every pixel. ``channels``: 3-tuple of
     (N,) f32 linear Rec2020; ``perm``: (N,) int32 visit order; ``table``:
     :func:`palette_table`; ``segment``: lane length (0 = one lane)."""
-    a, b, c = channels
-    if a.device.type == "cpu":
+    if channels[0].device.type == "cpu":
         return dither_scan_plain(channels, perm, table, segment)
+    out = _launch(channels, perm, table, segment, group_for(table.shape[0]))
+    kernels.LAUNCHES["dither_scan"] += 1
+    return out
+
+
+def dither_scan_group(channels, perm, table, segment, group):
+    """One launch on the card with ``group`` (4, 8, 16 or 32) threads a
+    lane: a measurement for chip_smoke.py's sweep, on no path and not
+    counted in ``LAUNCHES``."""
+    return _launch(channels, perm, table, segment, group)
+
+
+def _launch(channels, perm, table, segment, group):
+    a, b, c = channels
     n = a.shape[0]
     k = table.shape[0]
     for t in (a, b, c, table):
@@ -112,9 +139,8 @@ def dither_scan(channels, perm, table, segment):
     seg, lanes = lane_shape(n, segment)
     err = build.library().pt_dither_scan(
         build.ptr(a), build.ptr(b), build.ptr(c), build.ptr(perm),
-        build.ptr(table), build.ptr(params), n, k, seg, lanes,
+        build.ptr(table), build.ptr(params), n, k, seg, lanes, int(group),
         build.ptr(out), build.stream(),
     )
     build.check(err, "dither_scan")
-    kernels.LAUNCHES["dither_scan"] += 1
     return out

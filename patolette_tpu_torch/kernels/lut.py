@@ -77,19 +77,29 @@ def _check(grid, centers, valid, name):
     return n, k, tab, valid_i
 
 
-def nearest_probe(grid, centers, valid, brick=True):
+# nearest_probe's layouts: name -> (the kernel's code, points a block,
+# warps a block)
+PROBE_LAYOUTS = {"linear": (0, 2048, 8), "brick": (1, 2048, 8),
+                 "sorted": (2, 8192, 32), "sorted4096": (3, 4096, 16)}
+
+
+def nearest_probe(grid, centers, valid, layout="brick"):
     """One launch of the scan on the card: (labels (N,) int32, centres
-    scanned per warp (W,) int32), in the brick layout (N a multiple of
-    2^18), as K5 runs it on the grid, or the linear one, as K3 runs it.
-    Not counted in ``LAUNCHES``."""
+    scanned per warp (W,) int32), in the layout ``layout``: "brick" (N a
+    multiple of 2^18), as K5 runs it on the grid; "linear", as K5 runs it
+    elsewhere; "sorted", as K3 runs it (8192-point tiles cut by median
+    splits); "sorted4096" (4096-point tiles, a measurement). Not counted
+    in ``LAUNCHES``."""
     a, b, c = grid
     n, k, tab, valid_i = _check(grid, centers, valid, "nearest_probe")
-    blocks = -(-n // (8 * WARP_POINTS))
+    code, points, warps = PROBE_LAYOUTS[layout]
+    blocks = -(-n // points)
     labels = torch.empty((n,), dtype=torch.int32, device=a.device)
-    counts = torch.zeros((blocks * 8,), dtype=torch.int32, device=a.device)
+    counts = torch.zeros((blocks * warps,), dtype=torch.int32,
+                         device=a.device)
     err = build.library().pt_nearest_probe(
         build.ptr(a), build.ptr(b), build.ptr(c), build.ptr(tab),
-        build.ptr(valid_i), n, k, int(brick), build.ptr(labels),
+        build.ptr(valid_i), n, k, code, build.ptr(labels),
         build.ptr(counts), build.stream(),
     )
     build.check(err, "nearest_probe")
