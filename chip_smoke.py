@@ -24,7 +24,10 @@ Phases, each printing one JSON line:
      bit for bit) and on its cases (kernel-k8-cases: one and two entries,
      the tiled walk at 4096 entries, one lane at 5x3, lanes of one step,
      1x1, 8x1, 1x8, n < 32, a short last lane, duplicated entries,
-     invalid slots; every group size and the wrapper, twice, bit for bit);
+     invalid slots, NaN and +-inf pixels, inf x 0, non-finite entries;
+     every group size and the wrapper, twice, bit for bit); K7, the whole
+     visit order, bit for bit and a bijection at 4K, at the 100 MP call's
+     strip and at the thin and tiny shapes of K7_SHAPES (kernel-k7-cases);
      K10 must equal its plain version bit for bit in every target, input
      kind and working space, and on all 2^24 codes, and its pow_exact must
      equal libdevice's pow on all 2^32 f32 inputs of each of its seven
@@ -33,7 +36,9 @@ Phases, each printing one JSON line:
      header and words and decode back to the table, and must flag an
      alternating table; K6's v1 and u16 v2 formats on K5's 256- and
      1024-colour tables and on crafted tables (one alternating 128-block;
-     the alternating table, over v1's run cap) likewise; K4 with a
+     the alternating table, over v1's run cap) likewise, and all three
+     formats on a table whose runs cross every group boundary and on one
+     that ends in an overflowing 128-block (kernel-k6-cases); K4 with a
      reduction between its two halves must match its plain version as
      without one. K1 is timed at GQ's 512x11, the palette's 256x4 and the
      LQ loop's 16x11 and 12x4 (id S: no candidate), K4 at P = 256 and
@@ -46,7 +51,9 @@ Phases, each printing one JSON line:
      and the second-launch sums bit for bit; K2 C = 1, C = 12, dead slots,
      a flat cluster, every member in one bucket, buckets equal and reruns
      the same bits; K4 at P = 1, every sample nearest one centre, zero
-     weights, exact ties; K9 d, l and u bit for bit at 3x50, 50x3, 2x2,
+     weights, exact ties, NaN and +-inf samples with slot 0 invalid, inf x
+     0, non-finite centres (also tiled); K9 d, l and u bit for bit at
+     3x50, 50x3, 2x2,
      1x1, 4x4, 31x31, 33x4000, 4000x33, 540x3840, 3840x2160 and on a
      constant and an 8-level image);
   3b. pull: the table pull (ops/lut.py::pull_lut) once for each branch
@@ -107,8 +114,8 @@ Phases, each printing one JSON line:
      MESH4_DEFAULT_RATIO of world 1's at each seed of MESH4_SEEDS (the
      call without saliency is reported beside them);
   9. golden: the 96x64 inputs against tests/golden/quantize_golden.npz;
- 10. split: K1, K2, K4, K9, K3, K8, K5 and K10 alone at the kernels
-     phase's shapes (K9 also at a mesh-4 rank's strip), each launch's
+ 10. split: K1, K2, K4, K9, K3, K8, K7, K5, K6 and K10 alone at the
+     kernels phase's shapes (K9 also at a mesh-4 rank's strip), each launch's
      device time (torch.profiler) and the enqueue rate, index_add_ beside
      K1 and, on
      K2's keys and precomputed features, beside K2; last, because a traced
@@ -818,9 +825,9 @@ def kernel_k4(torch, rows):
 def kernel_k4_adversarial(torch):
     """K4 at P = 1, with every sample nearest one centre (the other 255
     valid slots empty: 255 splits), zero weights on a third of the samples,
-    and two centres exactly equal (the lower index must win): labels equal
-    to the plain version's, centres within its tolerance, the same bits
-    twice."""
+    two centres exactly equal (the lower index must win), and non-finite
+    samples and centres: labels equal to the plain version's, centres
+    within its tolerance (non-finite ones equal), the same bits twice."""
     from patolette_tpu_torch.kernels.kmeans import (kmeans_step,
                                                     kmeans_step_plain)
 
@@ -840,22 +847,58 @@ def kernel_k4_adversarial(torch):
     tie[200] = tie[7]
     w = torch.rand((m,), generator=g, device=DEV)
     w[torch.rand((m,), generator=g, device=DEV) < 1.0 / 3.0] = 0.0
-    cases = {"p_1": (None, pick(1), every(1)),
-             "one_centre_nearest": (None, far, every(p)),
-             "zero_weights": (w, pick(p), every(p)),
-             "exact_ties": (None, tie, every(p))}
+    # argmin takes the first NaN distance: NaN and +-inf samples (every
+    # 97th from a channel's own offset, one sample NaN in all three) with
+    # slot 0 invalid; +inf samples against a centre with a zero coordinate
+    # (inf x 0: NaN for it, -inf or +inf for the others); a centre at (inf,
+    # 0, 0) and one with a NaN, in the resident and the tiled scan
+    bad = x.clone()
+    for i, v in enumerate((float("nan"), float("inf"), float("-inf"))):
+        bad[i::97, i] = v
+    bad[5] = float("nan")
+    no_first = every(p)
+    no_first[0] = False
+    inf0 = x.clone()
+    inf0[::53, 0] = float("inf")
+    zero = pick(p)
+    zero[3, 0] = 0.0
+    wild = pick(p)
+    wild[7] = torch.tensor([float("inf"), 0.0, 0.0], device=DEV)
+    wild[9, 2] = float("nan")
+    wild_large = pick(P_LARGE)
+    wild_large[P_LARGE - 100] = wild[7]
+    wild_large[P_LARGE - 50, 0] = float("nan")
+    cases = {"p_1": (x, None, pick(1), every(1)),
+             "one_centre_nearest": (x, None, far, every(p)),
+             "zero_weights": (x, w, pick(p), every(p)),
+             "exact_ties": (x, None, tie, every(p)),
+             "nonfinite_samples": (bad, None, pick(p), no_first),
+             "inf_times_zero": (inf0, None, zero, every(p)),
+             "nonfinite_centres": (x, None, wild, every(p)),
+             "nonfinite_centres_tiled": (x, None, wild_large,
+                                         every(P_LARGE))}
     out = {"phase": "kernel-adversarial", "kernel": "kmeans_step"}
-    for name, (wt, c0, valid) in cases.items():
-        c_k, l_k = kmeans_step(x, wt, c0, valid, return_labels=True)
-        c_t, l_t = kmeans_step_plain(x, wt, c0, valid)
-        c_k2, l_k2 = kmeans_step(x, wt, c0, valid, return_labels=True)
+    for name, (xs, wt, c0, valid) in cases.items():
+        c_k, l_k = kmeans_step(xs, wt, c0, valid, return_labels=True)
+        c_t, l_t = kmeans_step_plain(xs, wt, c0, valid)
+        c_k2, l_k2 = kmeans_step(xs, wt, c0, valid, return_labels=True)
         torch.cuda.synchronize()
         agree = _agreement(l_k, l_t)
         check(agree == 1.0, f"K4 {name}: labels agree only {agree}")
-        err = float((c_k - c_t).abs().max())
-        check(err <= 1e-6, f"K4 {name}: centres deviate {err}")
-        check(torch.equal(c_k, c_k2) and torch.equal(l_k, l_k2),
-              f"K4 {name}: not deterministic")
+        # centres within the sums' rounding, where every sample is finite:
+        # the plain version sums by a one-hot product (as the JAX package's
+        # segment_matmul), whose 0 x inf spreads NaN to every cluster, where
+        # the kernel sums each cluster's members only
+        err = None
+        if bool(torch.isfinite(xs).all()):
+            same = (torch.isnan(c_k) == torch.isnan(c_t)) & (
+                (c_k == c_t) | torch.isnan(c_k)
+                | (torch.isfinite(c_k) & torch.isfinite(c_t)))
+            check(bool(same.all()), f"K4 {name}: non-finite centres differ")
+            err = float((c_k - c_t).nan_to_num(0.0).abs().max())
+            check(err <= 1e-6, f"K4 {name}: centres deviate {err}")
+        check(torch.equal(c_k.nan_to_num(2.0), c_k2.nan_to_num(2.0))
+              and torch.equal(l_k, l_k2), f"K4 {name}: not deterministic")
         if name == "exact_ties":
             check(bool((l_k == 7).any()) and not bool((l_k == 200).any()),
                   "K4: a tie went to the higher index")
@@ -1093,6 +1136,64 @@ def _block_table(torch, n, dtype):
     return t
 
 
+def _k6_words(rle, fn, enc):
+    """(count, overflow, the words a reader may read) of a K6 buffer."""
+    if fn is rle.rle_encode_u8:
+        count = rle.header_v1(enc)
+        return count, count > rle.MAX_RUNS, enc[1:1 + min(count,
+                                                          rle.MAX_RUNS)]
+    if fn is rle.rle_encode_u8_v2:
+        (count, over), hdr = rle.header(enc), 3
+    else:
+        (count, over), hdr = rle.header_u16_v2(enc), 2
+    return count, over, enc[hdr:hdr + (0 if over else count)]
+
+
+def kernel_k6_cases(torch):
+    """K6 in its three formats on two crafted 2^24 tables: runs of 1001
+    entries, so a run crosses every boundary of the kernel's groups of
+    32768 entries (and of every row but the forced starts), and a constant
+    table whose last 128-block alternates (a row over v2's cap of 32 at
+    the very end: the last group's overflow reaches the header). Header
+    and words equal to the plain version's, and the same twice."""
+    from patolette_tpu_torch.kernels import rle
+
+    n = 1 << 24
+    runs = torch.arange(n, device=DEV) // 1001
+    tail = torch.zeros(n, dtype=torch.int64, device=DEV)
+    tail[-128:] = torch.arange(128, device=DEV) % 2 + 7
+    tables = {"crossing": runs, "overflowing-tail": tail}
+    out = {}
+    for tname, t in tables.items():
+        for fn, plain_fn, dtype in (
+                (rle.rle_encode_u8_v2, rle.rle_encode_u8_v2_plain,
+                 torch.uint8),
+                (rle.rle_encode_u8, rle.rle_encode_u8_plain, torch.uint8),
+                (rle.rle_encode_u16_v2, rle.rle_encode_u16_v2_plain,
+                 torch.uint16)):
+            x = (t % (251 if dtype == torch.uint8 else 65521)).to(dtype)
+            enc = fn(x)
+            again = fn(x)
+            twin = plain_fn(x)
+            torch.cuda.synchronize()
+            count, over, words = _k6_words(rle, fn, enc)
+            t_count, t_over, t_words = _k6_words(rle, fn, twin)
+            name = f"{fn.__name__}[{tname}]"
+            check((count, over) == (t_count, t_over),
+                  f"K6 {name}: header {(count, over)} against "
+                  f"{(t_count, t_over)}")
+            check(torch.equal(words, t_words), f"K6 {name}: words differ")
+            a_count, a_over, a_words = _k6_words(rle, fn, again)
+            check((a_count, a_over) == (count, over)
+                  and torch.equal(a_words, words),
+                  f"K6 {name}: not deterministic")
+            check(over == (tname == "overflowing-tail"
+                           and fn is not rle.rle_encode_u8),
+                  f"K6 {name}: overflow {over}")
+            out[name] = dict(runs=count, overflow=over)
+    emit({"phase": "kernel-k6-cases", "cases": out, "identical": True})
+
+
 def kernel_k6_pull(torch, rows, tables):
     """K6's v1 (u8) and u16 v2 formats on K5's 256- and 1024-colour tables
     and on crafted tables: header and words equal to the plain version
@@ -1162,31 +1263,52 @@ def kernel_k6_pull(torch, rows, tables):
             bound_by=by))
 
 
-def kernel_k7(torch, rows):
-    from patolette_tpu_torch.kernels.hilbert import (hilbert_keys,
-                                                     hilbert_keys_plain)
-    from patolette_tpu_torch.ops import hilbert
+# K7's shapes (kernel-k7-cases), each bit for bit equal to the plain
+# version, a bijection, and the same twice: the 4K image, one strip of the
+# 100 MP call (its rows from the pipeline's strip size), the smallest and
+# thinnest images, 40000 px sides (order 16: 4.3 G cells in the curve's
+# square), sides just over a power of two
+K7_SHAPES = ((W, H), (HEADLINE_W, None), (1, 1), (8, 1), (1, 8), (5, 3),
+             (7, 3), (3, 40000), (40000, 3), (4097, 2), (2, 4097))
 
-    w, h = W, H
-    order = hilbert.curve_order(w, h)
-    got = hilbert_keys(w, h, order, DEV)
-    twin = hilbert_keys_plain(w, h, order, DEV)
-    perm = hilbert.pixel_visit_order(w, h, DEV)
-    torch.cuda.synchronize()
-    check(torch.equal(got, twin), "K7 keys differ from the plain version")
-    check(torch.equal(perm.long(), torch.argsort(twin)),
-          "K7 permutation differs")
-    seen = torch.zeros(w * h, dtype=torch.bool, device=DEV)
-    seen[perm.long()] = True
-    check(bool(seen.all()), "K7 permutation is not a bijection")
-    ms = time_ms(lambda: hilbert_keys(w, h, order, DEV))
-    plain = time_ms(lambda: hilbert_keys_plain(w, h, order, DEV), reps=3,
-                    warm=1)
-    b, by = bound_ms(w * h * 8, 0)
-    rows.append(dict(name="hilbert_keys", shape=[w, h, order],
-                     max_abs_err=float((got != twin).sum()), ms=ms,
-                     plain_ms=plain, library_ms=None, bound_ms=b,
-                     bound_by=by))
+
+def _k7_shapes():
+    """K7_SHAPES with the strip's rows filled in."""
+    return tuple((w, h if h is not None else _strip_count(w, HEADLINE_H)[1])
+                 for w, h in K7_SHAPES)
+
+
+def kernel_k7(torch, rows):
+    """K7 (the visit order, no sort) at K7_SHAPES; timed at the 4K image
+    and the 100 MP call's strip beside the plain version (keys and an
+    argsort on the card)."""
+    from patolette_tpu_torch.kernels.hilbert import (pixel_visit_order_plain,
+                                                     visit_order)
+
+    out = {}
+    for w, h in _k7_shapes():
+        got = visit_order(w, h, DEV)
+        twin = pixel_visit_order_plain(w, h, DEV)
+        again = visit_order(w, h, DEV)
+        seen = torch.zeros(w * h, dtype=torch.int32, device=DEV)
+        seen.index_add_(0, got.long(), torch.ones_like(got))
+        torch.cuda.synchronize()
+        differ = int((got != twin).sum())
+        check(differ == 0, f"K7 {w}x{h}: {differ} entries differ")
+        check(torch.equal(got, again), f"K7 {w}x{h}: not deterministic")
+        check(bool((seen == 1).all()), f"K7 {w}x{h}: not a bijection")
+        out[f"{w}x{h}"] = "equal"
+        if (w, h) != (W, H) and w != HEADLINE_W:
+            continue
+        ms = time_ms(lambda: visit_order(w, h, DEV))
+        plain = time_ms(lambda: pixel_visit_order_plain(w, h, DEV), reps=3,
+                        warm=1)
+        b, by = bound_ms(w * h * 4, 0)  # the permutation written
+        rows.append(dict(name="visit_order" + ("" if w == W else "[strip]"),
+                         shape=[w, h], max_abs_err=float(differ), ms=ms,
+                         plain_ms=plain, library_ms=None, bound_ms=b,
+                         bound_by=by))
+    emit({"phase": "kernel-k7-cases", "cases": out, "identical": True})
 
 
 def _linear_image(torch, w, h):
@@ -1307,7 +1429,8 @@ def kernel_k8(torch, rows):
 # and through the wrapper, twice: one and two entries, the tiled walk
 # (4096 entries), one lane (segment 0) at 5x3, lanes of one step, 1x1,
 # 8x1, 1x8, n < 32, a short last lane (4096 + 904), lanes of 37 steps,
-# duplicated entries (exact ties), every other slot invalid
+# duplicated entries (exact ties), every other slot invalid, and the
+# non-finite inputs of _k8_nonfinite (in registers and in the tiled walk)
 K8_CASES = (
     ("p1", 96, 64, 1, 4096, "random"),
     ("p2", 96, 64, 2, 4096, "random"),
@@ -1322,7 +1445,36 @@ K8_CASES = (
     ("segment37", 96, 64, 256, 37, "random"),
     ("duplicates", 96, 64, 256, 4096, "duplicates"),
     ("invalid", 96, 64, 256, 4096, "invalid"),
+    ("nonfinite", 96, 64, 256, 37, "nonfinite"),
+    ("inf-times-zero", 96, 64, 256, 37, "inf-times-zero"),
+    ("nonfinite-entries", 96, 64, 256, 37, "nonfinite-entries"),
+    ("nonfinite-entries-tiled", 256, 256, 4096, 4096, "nonfinite-entries"),
 )
+
+
+def _k8_nonfinite(torch, ch, pal, valid, kind):
+    """K8_CASES' non-finite inputs (argmin takes the first NaN distance):
+    "nonfinite", NaN, +inf and -inf in each channel of every 97th pixel
+    from the channel's own offset and a pixel NaN in all three, slot 0
+    invalid; "inf-times-zero", +inf in channel 0 of every 53rd pixel
+    against entry 3, whose channel 0 is 0 (inf x 0: a NaN distance for
+    entry 3, -inf or +inf for the others); "nonfinite-entries", entry 7 at
+    (inf, 0, 0) and a NaN in entry 9. A pushed error is the uncorrected
+    pixel's, so a bad pixel sways its lane for 16 steps."""
+    ch = tuple(c.clone() for c in ch)
+    if kind == "nonfinite":
+        for i, v in enumerate((float("nan"), float("inf"), float("-inf"))):
+            ch[i][i::97] = v
+        for c in ch:
+            c[5] = float("nan")
+        valid[0] = False
+    elif kind == "inf-times-zero":
+        ch[0][::53] = float("inf")
+        pal[3, 0] = 0.0
+    elif kind == "nonfinite-entries":
+        pal[7] = torch.tensor([float("inf"), 0.0, 0.0], device=DEV)
+        pal[9, 2] = float("nan")
+    return ch, pal, valid
 
 
 def kernel_k8_cases(torch):
@@ -1336,6 +1488,7 @@ def kernel_k8_cases(torch):
     for name, w, h, p, seg, kind in K8_CASES:
         ch = _linear_image(torch, w, h)
         pal, valid = _k8_palette(torch, ch, p, kind)
+        ch, pal, valid = _k8_nonfinite(torch, ch, pal, valid, kind)
         table = palette_table(pal, valid)
         perm = hilbert.pixel_visit_order(w, h, DEV)
         twin = dither_scan_plain(ch, perm, table, seg)
@@ -1597,16 +1750,19 @@ K9_SPLIT_SHAPES = ((H, W), (H // 4, W))
 
 
 def phase_split(torch):
-    """K1, K2, K4, K9, K3, K8, K5 and K10 alone: CUDA-event ms of a wrapper
-    call, the enqueue rate, each launch's device time (launch_split);
+    """K1, K2, K4, K9, K3, K8, K7, K5, K6 and K10 alone: CUDA-event ms of
+    a wrapper call, the enqueue rate, each launch's device time
+    (launch_split);
     index_add_ beside K1, and beside K2 on K2's own keys and precomputed
     features (a yardstick of its accumulate part only). K1 at K1_SHAPES,
     K4 at P = 256 and P_LARGE, K2 at the random case and at the LQ loop's
     median member share, K9 at K9_SPLIT_SHAPES, K3 on the synthetic 4K
-    image and on random pixels, K8 at the default call's 4K shape, K5 on
-    the grid at P = 256 (u8) and 1024
-    (u16), K10 at each of K10_ROWS. It runs after every e2e phase:
-    once torch.profiler has traced a process, each later launch in it
+    image and on random pixels, K8 at the default call's 4K shape, K7 at
+    4K and at the 100 MP call's strip, K5 on the grid at P = 256 (u8) and
+    1024 (u16), K6 on those two tables (v2 also on a quarter, v1 and u16
+    also on a one-block table), K10 at each of K10_ROWS. It runs after
+    every e2e phase: once torch.profiler has traced a process, each later
+    launch in it
     pays CUPTI's cost on the host, which the LQ loop's laps would show.
     With ``--root DIR`` the kernels are another checkout's (a parent's,
     timed in turns with this one's)."""
@@ -1706,7 +1862,17 @@ def phase_split(torch):
           "split": launch_split(
               torch, lambda: dither_scan(ch, perm, table, 4096), reps=10)})
     del ch, perm
+    # K7: the whole visit order (the parent: keys, a torch argsort, a cast)
+    for w, h in _k7_shapes()[:2]:
+        emit({"phase": "split", "kernel": "visit_order", "shape": [w, h],
+              "ms": time_ms(lambda: hilbert.pixel_visit_order(w, h, DEV),
+                            reps=30),
+              "enqueue_ms": enqueue_ms(
+                  lambda: hilbert.pixel_visit_order(w, h, DEV)),
+              "split": launch_split(
+                  torch, lambda: hilbert.pixel_visit_order(w, h, DEV))})
     grid = lut.grid_ictcp(2, DEV)
+    tables = {}
     for p, dtype in ((256, torch.uint8), (1024, torch.uint16)):
         centers = _working_pixels(torch, p, 20 + p)
         valid = torch.ones(p, dtype=torch.bool, device=DEV)
@@ -1717,8 +1883,29 @@ def phase_split(torch):
               "split": launch_split(
                   torch, lambda: lut_argmin(grid, centers, valid, dtype),
                   reps=10)})
+        tables[p] = lut_argmin(grid, centers, valid, dtype)
     del grid
     lut.clear_grid_cache()
+    # K6 in its three formats on K5's tables, the quarter slice and the
+    # one-block tables (the kernels phase's)
+    from patolette_tpu_torch.kernels import rle
+
+    n = lut.LUT_SIZE
+    for name, fn, t in (
+            ("rle_encode_u8_v2", rle.rle_encode_u8_v2, tables[256]),
+            ("rle_encode_u8_v2[quarter]", rle.rle_encode_u8_v2,
+             tables[256][n // 4:n // 2]),
+            ("rle_encode_u8", rle.rle_encode_u8, tables[256]),
+            ("rle_encode_u8[block]", rle.rle_encode_u8,
+             _block_table(torch, n, torch.uint8)),
+            ("rle_encode_u16_v2", rle.rle_encode_u16_v2, tables[1024]),
+            ("rle_encode_u16_v2[block]", rle.rle_encode_u16_v2,
+             _block_table(torch, n, torch.uint16))):
+        emit({"phase": "split", "kernel": name, "shape": [t.shape[0]],
+              "ms": time_ms(lambda: fn(t), reps=30),
+              "enqueue_ms": enqueue_ms(lambda: fn(t)),
+              "split": launch_split(torch, lambda: fn(t))})
+    del tables
     inputs = _k10_inputs(torch)
     for name, kind, target, c, _, _ in K10_ROWS:
         x = inputs[kind]
@@ -1809,6 +1996,7 @@ def phase_kernels(torch):
     tables = kernel_k5(torch, rows)
     kernel_k6(torch, rows)
     kernel_k6_pull(torch, rows, tables)
+    kernel_k6_cases(torch)
     kernel_k7(torch, rows)
     kernel_k8(torch, rows)
     kernel_k8_cases(torch)
@@ -2051,9 +2239,9 @@ MAIN_PATH_KERNELS = ("segment_sum", "lq_candidates", "assign_planar",
                      "kmeans_step", "color_convert")
 U8_LUT_KERNELS = ("lut_argmin", "rle_encode_u8_v2", "segment_sum",
                   "lq_candidates", "kmeans_step", "color_convert")
-DEFAULT_PATH_KERNELS = ("hilbert_keys", "dither_scan", "mbd", "segment_sum",
+DEFAULT_PATH_KERNELS = ("visit_order", "dither_scan", "mbd", "segment_sum",
                         "lq_candidates", "kmeans_step", "color_convert")
-STRIP_DITHER_KERNELS = ("hilbert_keys", "dither_scan", "color_convert",
+STRIP_DITHER_KERNELS = ("visit_order", "dither_scan", "color_convert",
                         "segment_sum", "lq_candidates", "kmeans_step")
 OVER_BUDGET_KERNELS = ("color_convert", "segment_sum", "lq_candidates",
                        "assign_planar", "kmeans_step")
@@ -2725,7 +2913,7 @@ def phase_e2e_over_budget(torch, mse_resident):
         pipeline.DEVICE_BUDGET_FRACTION = saved
     strips, rows = _strip_count(w, h)
     _check_streamed(stats, "the over-budget call",
-                    ("hilbert_keys", "dither_scan", "mbd"))
+                    ("visit_order", "dither_scan", "mbd"))
     _check_outputs(pal, pmap, p, w * h)
 
     # the streamed route's palette, then K3 over the whole image
@@ -3174,8 +3362,8 @@ SOURCES = {
                     "patolette_tpu/models/kmeans.py:104", "main"),
     "lut_argmin": ("patolette_tpu_torch/csrc/lut.cu",
                    "patolette_tpu/ops/lut.py:145", "u8-lut"),
-    "hilbert_keys": ("patolette_tpu_torch/csrc/hilbert.cu",
-                     "patolette_tpu/ops/hilbert.py:31", "default"),
+    "visit_order": ("patolette_tpu_torch/csrc/hilbert.cu",
+                    "patolette_tpu/ops/hilbert.py:62", "default"),
     "dither_scan": ("patolette_tpu_torch/csrc/dither.cu",
                     "patolette_tpu/models/dither.py:144", "default"),
     "mbd": ("patolette_tpu_torch/csrc/mbd.cu",
@@ -3193,6 +3381,7 @@ SOURCES = {
 
 # kernel rows of another instantiation, counted on the path that runs it
 ROW_PATHS = {"lut_argmin[1024]": "u16-lut",
+             "visit_order[strip]": "strip-u8",
              "rle_encode_u8_v2[quarter]": "mesh4-u8",
              "rle_encode_u8[alternating]": "pull-u8-raw",
              "rle_encode_u16_v2[block]": "pull-u16-raw",

@@ -52,6 +52,30 @@ __device__ __forceinline__ float pt_norm2(float a, float b, float c) {
                    __fmul_rn(c, c));
 }
 
+// True when every coordinate is at most 2^60 in magnitude (so not NaN or
+// infinite). Between such a point and such a centre no operation of
+// pt_dist or pt_norm2 overflows (products <= 2^120, |c|^2 <= 3 2^120, the
+// doubled dot < 2^123), so the distance is finite (+inf only from an
+// invalid slot's +inf |c|^2) and never NaN: a strict < then is argmin's
+// rule, which otherwise takes the first NaN (K4 and K8 test this and take
+// a NaN-rule path where it fails).
+__device__ __forceinline__ bool pt_tame(float a, float b, float c) {
+  constexpr float kBig = 1.152921504606846976e18f;  // 2^60
+  return fabsf(a) <= kBig && fabsf(b) <= kBig && fabsf(c) <= kBig;
+}
+
+// (v, i) <- (ov, oi) when it comes first under argmin's rule: a NaN first
+// (the lower index among NaNs), then the smaller value, then the lower
+// index.
+__device__ __forceinline__ void pt_take_min_nan(float& v, int& i, float ov,
+                                                int oi) {
+  const bool vn = isnan(v), on = isnan(ov);
+  const bool t = on ? (!vn || oi < i)
+                    : (!vn && (ov < v || (ov == v && oi < i)));
+  v = t ? ov : v;
+  i = t ? oi : i;
+}
+
 // One step of a warp's accumulation. Lane l holds `key`, the table row of
 // the step's pixel l (-1: dropped, as is every lane past the range's end),
 // and the pixel's f features at rows[l * f .. l * f + f) (the warp's own

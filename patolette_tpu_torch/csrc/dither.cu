@@ -34,6 +34,16 @@
 //      argmin.
 // Every product and sum is rounded on its own (__fmul_rn/__fadd_rn) in the
 // plain version's order, so the labels equal the plain version's.
+// NaN: argmin takes the first NaN distance, which the chains' strict < and
+// fminf skip. A distance can be NaN (or -inf) only where the query or an
+// entry is not pt_tame. The entries and raw colours are tested once as the
+// block starts, and each step's pixel (small3) with no branch: with all of
+// them small, no query is wild. Where one is not, the block's lanes (each
+// a chain from a zero queue) run again from their start in a second copy
+// that tests each query, and where that fails anywhere in the warp the
+// groups concerned scan again with argmin's rule (scan_nan: the real
+// entries from device memory, then a NaN-ordered merge). Finite inputs
+// never take that path (dither_kernel below).
 // Pixels come in batches of 16 steps: while a batch runs, cp.async copies the
 // next batch's three channel values (through permutation entries copied one
 // batch earlier) into the lane's other stage buffer in shared memory, so no
@@ -203,16 +213,46 @@ __device__ __forceinline__ void scan_regs(const float4 (&pal)[kPer], int r,
   bi = t ? idx[0] : bi;
 }
 
+// |v| <= 2^50 for each (so not NaN or infinite). With every pixel of a
+// lane and every raw colour this small, an error is at most 2^51,
+// a queue sum (weights summing to < 8) under 2^54 and the query under
+// 2^55: pt_tame, so against tame entries no distance is NaN.
+__device__ __forceinline__ bool small3(float a, float b, float c) {
+  constexpr float kSmall = 1.125899906842624e15f;  // 2^50
+  return fabsf(a) <= kSmall && fabsf(b) <= kSmall && fabsf(c) <= kSmall;
+}
+
+// Argmin's first minimum, a NaN distance the least, over this thread's
+// real entries r, r + G, ... (< k) read from the table in device memory:
+// the path of queries or palettes that are not pt_tame (at most k / G
+// loads a step, on no finite input's path).
+template <int G>
+__device__ __noinline__ void scan_nan(const float4* __restrict__ table,
+                                      int k, int r, float q0, float q1,
+                                      float q2, float& best, int& bi) {
+  best = INFINITY;
+  bi = k;  // "none"
+  for (int e = r; e < k; e += G) {
+    const float d = pt_dist(q0, q1, q2, table[2 * (size_t)e]);
+    if (d < best || (isnan(d) && !isnan(best))) {
+      best = d;
+      bi = e;
+    }
+  }
+}
+
 // kPer: the palette's place. -1: walked in tiles of kTile entries; 0:
 // resident in shared memory; > 0: kPer entries a thread in registers.
-template <int G, int kPer>
-__global__ void dither_kernel(const float* __restrict__ x0,
-                              const float* __restrict__ x1,
-                              const float* __restrict__ x2,
-                              const int* __restrict__ perm,
-                              const float4* __restrict__ table,
-                              const float* __restrict__ params, int n, int k,
-                              int seg, int lanes, int* __restrict__ out) {
+// The lanes of this block (kCheck: each query tested for the NaN rule);
+// returns whether a pixel channel this thread took was not small3 (without
+// kCheck).
+template <int G, int kPer, bool kCheck>
+__device__ __forceinline__ bool dither_lanes(
+    const float* __restrict__ x0, const float* __restrict__ x1,
+    const float* __restrict__ x2, const int* __restrict__ perm,
+    const float4* __restrict__ table, const float* __restrict__ params,
+    int n, int k, int seg, int lanes, int* __restrict__ out,
+    bool wild_palette) {
   extern __shared__ float4 smem[];
   constexpr bool kResident = kPer >= 0;
   constexpr bool kRegs = kPer > 0;
@@ -259,7 +299,7 @@ __global__ void dither_kernel(const float* __restrict__ x0,
   const int batches =
       kResident ? __reduce_max_sync(PT_FULL, (len + kSteps - 1) / kSteps)
                 : (seg + kSteps - 1) / kSteps;
-  if (batches == 0) return;  // warp-uniform; no block-wide barrier follows
+  if (batches == 0) return false;  // warp-uniform; no barrier follows
 
   float qw[kQueue];
 #pragma unroll
@@ -301,8 +341,10 @@ __global__ void dither_kernel(const float* __restrict__ x0,
     }
     __syncwarp();
   }
-
-  for (int b = 0; b < batches; ++b) {
+  bool wild_seen = false;  // a pixel of the lane that is not small3
+  // One batch: the copies of the next batch's pixels, this batch's steps
+  // (kCheck: each query tested for the NaN rule), the wait for the copies.
+  auto batch = [&](int b) {
     const float4* cur = st + (b & 1) * kSteps;
     const float* cur_f = st_f + (b & 1) * kSteps * 4;
 #pragma unroll
@@ -329,55 +371,131 @@ __global__ void dither_kernel(const float* __restrict__ x0,
       }
     }
     cp_async_commit();
-    float px = cur_f[ch];
+    {
+      float px = cur_f[ch];
 #pragma unroll 1
-    for (int j = 0; j < kSteps; ++j) {
-      const float px_next = cur_f[4 * ((j + 1) % kSteps) + ch];
-      const float qc = __fmul_rn(__fadd_rn(px, sum), cw);
-      const float q0 = __shfl_sync(PT_FULL, qc, gbase);
-      const float q1 = __shfl_sync(PT_FULL, qc, gbase + 1);
-      const float q2 = __shfl_sync(PT_FULL, qc, gbase + 2);
-      float best = INFINITY;
-      int bi = k;  // "none"
-      if constexpr (kRegs) {
-        scan_regs<G, kPer>(pal, r, q0, q1, q2, best, bi);
-      } else if constexpr (kResident) {
-        scan_tile<G>(spal, pad, r, 0, q0, q1, q2, best, bi);
-      } else {
-        for (int t0 = 0; t0 < k; t0 += kTile) {
-          const int cnt = min(kTile, k - t0);
-          const int tpad = round_up(cnt, G * kChains);
-          __syncthreads();
-          load_palette(spal, nullptr, table, t0, cnt, tpad);
-          __syncthreads();
-          scan_tile<G>(spal, tpad, r, t0, q0, q1, q2, best, bi);
+      for (int j = 0; j < kSteps; ++j) {
+        const float px_next = cur_f[4 * ((j + 1) % kSteps) + ch];
+        const float qc = __fmul_rn(__fadd_rn(px, sum), cw);
+        // this thread's channel of the step's pixel (the group's threads
+        // 0, 1 and 2 hold the three); no branch
+        if constexpr (!kCheck) wild_seen |= !small3(px, px, px);
+        const float q0 = __shfl_sync(PT_FULL, qc, gbase);
+        const float q1 = __shfl_sync(PT_FULL, qc, gbase + 1);
+        const float q2 = __shfl_sync(PT_FULL, qc, gbase + 2);
+        float best = INFINITY;
+        int bi = k;  // "none"
+        if constexpr (kRegs) {
+          scan_regs<G, kPer>(pal, r, q0, q1, q2, best, bi);
+        } else if constexpr (kResident) {
+          scan_tile<G>(spal, pad, r, 0, q0, q1, q2, best, bi);
+        } else {
+          for (int t0 = 0; t0 < k; t0 += kTile) {
+            const int cnt = min(kTile, k - t0);
+            const int tpad = round_up(cnt, G * kChains);
+            __syncthreads();
+            load_palette(spal, nullptr, table, t0, cnt, tpad);
+            __syncthreads();
+            scan_tile<G>(spal, tpad, r, t0, q0, q1, q2, best, bi);
+          }
         }
-      }
 #pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(PT_FULL, best, off);
-        const int oi = __shfl_xor_sync(PT_FULL, bi, off);
-        take_min(best, bi, ob, oi);
-      }
-      if (bi >= k) bi = 0;  // every distance +inf: argmin's first index
-      const float raw =
-          kResident ? sraw[ch * pad + bi]
-                    : reinterpret_cast<const float*>(table)[8 * (size_t)bi +
-                                                            4 + ch];
-      const float e = __fsub_rn(px, raw);
-      sum = __fadd_rn(part, __fmul_rn(qw[kQueue - 1], e));
-      part = __fadd_rn(acc[0], __fmul_rn(qw[kQueue - 2], e));
+        for (int off = G / 2; off > 0; off >>= 1) {
+          const float ob = __shfl_xor_sync(PT_FULL, best, off);
+          const int oi = __shfl_xor_sync(PT_FULL, bi, off);
+          take_min(best, bi, ob, oi);
+        }
+        if constexpr (kCheck) {
+          // q is the group's, so a group agrees on wild_q; the vote is the
+          // warp's (every shuffle names the whole warp)
+          const bool wild_q = wild_palette || !pt_tame(q0, q1, q2);
+          if (__any_sync(PT_FULL, wild_q)) {
+            float nb;
+            int ni;
+            scan_nan<G>(table, wild_q ? k : 0, r, q0, q1, q2, nb, ni);
 #pragma unroll
-      for (int q = 1; q < kQueue - 2; ++q) {
-        acc[q - 1] = __fadd_rn(acc[q], __fmul_rn(qw[kQueue - 2 - q], e));
+            for (int off = G / 2; off > 0; off >>= 1) {
+              const float ob = __shfl_xor_sync(PT_FULL, nb, off);
+              const int oi = __shfl_xor_sync(PT_FULL, ni, off);
+              pt_take_min_nan(nb, ni, ob, oi);
+            }
+            if (wild_q) {
+              best = nb;
+              bi = ni;
+            }
+          }
+        }
+        if (bi >= k) bi = 0;  // every distance +inf: argmin's first index
+        const float raw =
+            kResident ? sraw[ch * pad + bi]
+                      : reinterpret_cast<const float*>(table)[8 * (size_t)bi +
+                                                              4 + ch];
+        const float e = __fsub_rn(px, raw);
+        sum = __fadd_rn(part, __fmul_rn(qw[kQueue - 1], e));
+        part = __fadd_rn(acc[0], __fmul_rn(qw[kQueue - 2], e));
+#pragma unroll
+        for (int q = 1; q < kQueue - 2; ++q) {
+          acc[q - 1] = __fadd_rn(acc[q], __fmul_rn(qw[kQueue - 2 - q], e));
+        }
+        acc[kQueue - 3] = __fadd_rn(0.0f, __fmul_rn(qw[0], e));
+        const int pix = __float_as_int(cur[j].w);
+        if (r == j % G && pix >= 0) out[pix] = bi;
+        px = px_next;
       }
-      acc[kQueue - 3] = __fadd_rn(0.0f, __fmul_rn(qw[0], e));
-      const int pix = __float_as_int(cur[j].w);
-      if (r == j % G && pix >= 0) out[pix] = bi;
-      px = px_next;
     }
     cp_async_wait_all();
     __syncwarp();
+  };
+
+  for (int b = 0; b < batches; ++b) batch(b);
+  return wild_seen;
+}
+
+template <int G, int kPer>
+__device__ __noinline__ void dither_lanes_checked(
+    const float* __restrict__ x0, const float* __restrict__ x1,
+    const float* __restrict__ x2, const int* __restrict__ perm,
+    const float4* __restrict__ table, const float* __restrict__ params,
+    int n, int k, int seg, int lanes, int* __restrict__ out,
+    bool wild_palette) {
+  dither_lanes<G, kPer, true>(x0, x1, x2, perm, table, params, n, k, seg,
+                              lanes, out, wild_palette);
+}
+
+// A lane is a chain that starts from a zero queue, so it can be run again
+// from its start. The block's lanes run without the NaN rule's test,
+// noting whether any pixel was not small3 (one predicate a step, no
+// branch). If one was, or the palette is not tame, the block's lanes run
+// again from their start in a separate (not inlined) function that tests
+// each query, and overwrite their labels: the checked copy stays out of
+// the steps' code, whose registers and schedule are the kernel's without
+// the rule.
+template <int G, int kPer>
+__global__ void dither_kernel(const float* __restrict__ x0,
+                              const float* __restrict__ x1,
+                              const float* __restrict__ x2,
+                              const int* __restrict__ perm,
+                              const float4* __restrict__ table,
+                              const float* __restrict__ params, int n, int k,
+                              int seg, int lanes, int* __restrict__ out) {
+  // an entry that is not pt_tame (NaN |c|^2 too), or a raw colour that is
+  // not small3
+  bool wild = false;
+  for (int e = threadIdx.x; e < k; e += blockDim.x) {
+    const float4 c = table[2 * (size_t)e];
+    const float4 raw = table[2 * (size_t)e + 1];
+    wild |= !pt_tame(c.x, c.y, c.z) || isnan(c.w) ||
+            !small3(raw.x, raw.y, raw.z);
+  }
+  const bool wild_palette = __syncthreads_or(wild);
+  bool seen = false;
+  if (!wild_palette) {
+    seen = dither_lanes<G, kPer, false>(x0, x1, x2, perm, table, params, n,
+                                        k, seg, lanes, out, false);
+  }
+  if (__syncthreads_or(wild_palette || seen)) {
+    dither_lanes_checked<G, kPer>(x0, x1, x2, perm, table, params, n, k,
+                                  seg, lanes, out, wild_palette);
   }
 }
 

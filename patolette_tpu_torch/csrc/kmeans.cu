@@ -15,16 +15,21 @@
 // kSamples samples in registers, so every centre's float4 is read once for
 // all of them. Nearest centre as K3: |c|^2 - 2 ((xa ca + xb cb) + xc cc)
 // with every op rounded on its own (pt_dist), strict <, so the lowest index
-// wins ties and carries across tiles. Then [w, w x0, w x1, w x2] is added
-// by the warp-grouped accumulation (common.cuh) into a (P, 4) table: one a
-// warp where eight fit in the shared-memory budget, else fewer, shared by
-// warps that take turns in warp order (P = 1024: 4; P >= 2048: 1), else
-// (P > ~9.7k) one in the block's own partial in device memory. The block
-// sums its tables in order into its partial, and the last blocks to finish
-// sum the partials (pt_finish_partials: groups of 16 blocks in block order,
-// then the groups in order) into mom. The order of every float sum is
-// fixed: sub-steps in sample order, lanes in ascending order, turns in warp
-// order, tables, blocks and groups in index order.
+// wins ties and carries across tiles. argmin takes the first NaN distance,
+// which a strict < skips; a distance can be NaN only where a sample or a
+// centre is not pt_tame, so a thread holding such a sample, or a tile
+// holding such a valid centre (found as the tile loads), scans with the
+// NaN rule (scan_centres<true>); finite inputs never take it. Then [w,
+// w x0, w x1, w x2] is added by the warp-grouped accumulation (common.cuh)
+// into a (P, 4) table: one a warp where eight fit in the shared-memory
+// budget, else fewer, shared by warps that take turns in warp order (P =
+// 1024: 4; P >= 2048: 1), else (P > ~9.7k) one in the block's own partial
+// in device memory. The block sums its tables in order into its partial,
+// and the last blocks to finish sum the partials (pt_finish_partials:
+// groups of 16 blocks in block order, then the groups in order) into mom.
+// The order of every float sum is fixed: sub-steps in sample order, lanes
+// in ascending order, turns in warp order, tables, blocks and groups in
+// index order.
 // kmeans_finalize (pt_kmeans_update, one launch): ONE block updates the
 // centres (mean where the cluster has mass and the slot is valid) and runs
 // _split_empty's walk: a valid empty slot takes the valid cluster of
@@ -68,10 +73,11 @@ constexpr size_t fixed_smem(int tile) {
 // The valid centres of [t0, t0 + cnt) in index order: sc[j] = (c, |c|^2),
 // sidx[j] = index; returns their number. Warp w compacts its chunk of the
 // tile by ballots; the chunks' counts give the offsets.
+// odd: some valid centre of the tile is not pt_tame.
 __device__ int load_tile(float4* sc, int* sidx, int* wcnt,
                          const float* __restrict__ c,
                          const unsigned char* __restrict__ valid, int t0,
-                         int cnt) {
+                         int cnt, bool& odd) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int chunk = (cnt + kThreads - 1) / kThreads * 32;
@@ -89,6 +95,7 @@ __device__ int load_tile(float4* sc, int* sidx, int* wcnt,
     off += w < warp ? wcnt[w] : 0;
     all += wcnt[w];
   }
+  bool wild = false;
   for (int i = c0; i < c1; i += 32) {
     const int k = i + lane;
     const bool v = k < c1 && valid[t0 + k];
@@ -99,11 +106,40 @@ __device__ int load_tile(float4* sc, int* sidx, int* wcnt,
       const float c0v = c[3 * g], c1v = c[3 * g + 1], c2v = c[3 * g + 2];
       sc[pos] = make_float4(c0v, c1v, c2v, pt_norm2(c0v, c1v, c2v));
       sidx[pos] = g;
+      wild |= !pt_tame(c0v, c1v, c2v);
     }
     off += __popc(bal);
   }
-  __syncthreads();
+  odd = __syncthreads_or(wild);
   return all;
+}
+
+// The first nearest of the tile's nv valid centres for this thread's
+// samples, carried in (best, lbl) across tiles: strict <, or with kNan
+// argmin's rule (a NaN distance is the least, the first NaN wins).
+template <bool kNan>
+__device__ __forceinline__ void scan_centres(const float4* sc,
+                                             const int* sidx, int nv,
+                                             const float (&xa)[kSamples],
+                                             const float (&xb)[kSamples],
+                                             const float (&xc)[kSamples],
+                                             float (&best)[kSamples],
+                                             int (&lbl)[kSamples]) {
+  for (int k = 0; k < nv; ++k) {
+    const float4 c = sc[k];
+    const int gi = sidx[k];
+#pragma unroll
+    for (int j = 0; j < kSamples; ++j) {
+      const float d = pt_dist(xa[j], xb[j], xc[j], c);
+      const bool take =
+          kNan ? (d < best[j] || (isnan(d) && !isnan(best[j])))
+               : d < best[j];
+      if (take) {
+        best[j] = d;
+        lbl[j] = gi;
+      }
+    }
+  }
 }
 
 // The batch at base: this thread's sample j is base + (warp * kSamples +
@@ -158,34 +194,32 @@ __global__ void __launch_bounds__(kThreads)
   load_samples(x, start, end, warp, lane, xa, xb, xc);
   for (int i = threadIdx.x; i < ntab * plen; i += kThreads) tables[i] = 0.0f;
   const bool resident = p <= kTile;
-  int nv = resident ? load_tile(sc, sidx, wcnt, centers, valid, 0, p) : 0;
+  bool odd_tile = false;
+  int nv = resident
+               ? load_tile(sc, sidx, wcnt, centers, valid, 0, p, odd_tile)
+               : 0;
 
   for (int base = start; base < end; base += kBatch) {
     if (base != start) load_samples(x, base, end, warp, lane, xa, xb, xc);
     float best[kSamples];
     int lbl[kSamples];
+    bool odd = false;
 #pragma unroll
     for (int j = 0; j < kSamples; ++j) {
       best[j] = INFINITY;
       lbl[j] = 0;
+      odd |= !pt_tame(xa[j], xb[j], xc[j]);
     }
     for (int t0 = 0; t0 < p; t0 += tile) {
       if (!resident) {
         __syncthreads();  // every thread is done with the previous tile
         nv = load_tile(sc, sidx, wcnt, centers, valid, t0,
-                       min(tile, p - t0));
+                       min(tile, p - t0), odd_tile);
       }
-      for (int k = 0; k < nv; ++k) {
-        const float4 c = sc[k];
-        const int gi = sidx[k];
-#pragma unroll
-        for (int j = 0; j < kSamples; ++j) {
-          const float d = pt_dist(xa[j], xb[j], xc[j], c);
-          if (d < best[j]) {
-            best[j] = d;
-            lbl[j] = gi;
-          }
-        }
+      if (odd || odd_tile) {
+        scan_centres<true>(sc, sidx, nv, xa, xb, xc, best, lbl);
+      } else {
+        scan_centres<false>(sc, sidx, nv, xa, xb, xc, best, lbl);
       }
     }
     // the warps sharing a table take turns, in warp order

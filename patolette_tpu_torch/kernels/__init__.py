@@ -16,7 +16,7 @@ LAUNCHES = {
     "rle_encode_u8_v2": 0,
     "rle_encode_u8": 0,
     "rle_encode_u16_v2": 0,
-    "hilbert_keys": 0,
+    "visit_order": 0,
     "dither_scan": 0,
     "mbd": 0,
     "color_convert": 0,

@@ -39,17 +39,23 @@ def assign_planar_plain(channels, centers, valid):
     n = a.shape[0]
     out = torch.empty((n,), dtype=torch.int32, device=a.device)
     invalid = ~valid[None, :]
+    # two (chunk, K) buffers made once: a fresh one a chunk pays the first
+    # touch of its pages every time
+    d_buf = torch.empty((min(n, _CHUNK), tab.shape[0]), dtype=torch.float32,
+                        device=a.device)
+    t_buf = torch.empty_like(d_buf)
     for s in range(0, n, _CHUNK):
-        xa, xb, xc = (v[s:s + _CHUNK, None] for v in (a, b, c))
-        # c2 - 2 ((xa ca + xb cb) + xc cc), each op rounded in this order,
-        # in place (three (chunk, K) buffers, not eight)
-        d = xa * ca
-        d += xb * cb
-        d += xc * cc
-        d *= 2.0
-        torch.sub(c2[None, :], d, out=d)
+        m = min(_CHUNK, n - s)
+        d, t = d_buf[:m], t_buf[:m]
+        xa, xb, xc = (v[s:s + m, None] for v in (a, b, c))
+        # c2 - 2 ((xa ca + xb cb) + xc cc), each op rounded in this order
+        # (the doubling is exact, so c2 - 2 d rounds once either way)
+        torch.mul(xa, ca, out=d)
+        d += torch.mul(xb, cb, out=t)
+        d += torch.mul(xc, cc, out=t)
+        torch.sub(c2[None, :], d, alpha=2.0, out=d)
         d.masked_fill_(invalid, torch.inf)
-        out[s:s + _CHUNK] = torch.argmin(d, dim=1).to(torch.int32)
+        out[s:s + m] = torch.argmin(d, dim=1)
     return out
 
 

@@ -53,16 +53,16 @@ SIGNATURES = {
     "pt_kmeans_moments": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                           _P),
     "pt_kmeans_update": (_P, _P, _P, _I, _P, _P, _P),
-    "pt_hilbert_keys": (_L, _I, _I, _P, _P),
+    "pt_visit_order": (_I, _I, _I, _I, _P, _P),
     "pt_dither_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "pt_mbd": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "pt_lut_argmin": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
     "pt_nearest_probe": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "pt_color_convert": (_P, _P, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P),
     "pt_pow_exact_check": (_D, _P, _P),
-    "pt_rle_encode_u8_v2": (_P, _I, _P, _P, _P, _P, _L, _P),
-    "pt_rle_encode_u8": (_P, _I, _P, _P, _P, _L, _P),
-    "pt_rle_encode_u16_v2": (_P, _I, _P, _P, _P, _P, _L, _P),
+    "pt_rle_encode_u8_v2": (_P, _I, _P, _P, _L, _P),
+    "pt_rle_encode_u8": (_P, _I, _P, _P, _L, _P),
+    "pt_rle_encode_u16_v2": (_P, _I, _P, _P, _L, _P),
 }
 
 HOST_SOURCE = "lut_map.cpp"

@@ -1,9 +1,9 @@
 """K6: run-length encode of a LUT table, in the three wire formats of the
 JAX package's ``pull_lut``.
 
-Kernel: ``csrc/rle.cu`` (per-128-block counts summed per group of 256
-blocks, one scan of the group sums, per-block writes; one set of kernels,
-templated on the format).
+Kernel: ``csrc/rle.cu`` (one launch, templated on the format: groups of
+32 KB of 128-blocks taken by ticket and copied into shared memory, so the
+table is read once; their offsets by look-back over the groups before).
 Twins: the JAX package's ``_rle_encode_u8_v2`` (``lut.py:206-267``),
 ``_rle_encode_u8`` (v1, ``lut.py:187-203``) and ``_rle_encode_u16_v2``
 (``lut.py:270-310``), which compact with sorts; the plain versions here
@@ -43,7 +43,7 @@ from patolette_tpu_torch.kernels import build
 FORCE = 128
 COLS = 32
 MAX_RUNS = (1 << 21) - 1
-GROUP = 256  # 128-blocks a thread block of the kernel takes
+GROUP = 128  # fewest 128-blocks a thread block of the kernel takes
 V1_WORDS = 1 + MAX_RUNS
 
 
@@ -142,24 +142,20 @@ def rle_encode_u16_v2_plain(table):
     return out.to(torch.uint32)
 
 
-def _launch(name, table, align, out, n_words, forced):
+def _launch(name, table, out, n_words):
     """Launch ``pt_<name>`` on ``table`` into the ``n_words`` words of
-    ``out`` (its scratch made here) and count it."""
-    if table.data_ptr() % align:
+    ``out`` and count it. The groups' status words and tickets are one
+    reused scratch buffer, which the kernel leaves at 0."""
+    if table.data_ptr() % 16:  # the kernel copies 16-byte pieces
         table = table.clone()
     build.require_cuda(name, table, out)
     rows = table.shape[0] // FORCE
-    groups = -(-rows // GROUP)
-    counts = torch.empty((rows + 3 * groups,), dtype=torch.int32,
-                         device=table.device)
-    last = (torch.empty((rows,), dtype=torch.uint8, device=table.device)
-            if forced else None)
-    args = [build.ptr(table), rows, build.ptr(counts[:rows])]
-    if forced:
-        args.append(build.ptr(last))
-    args += [build.ptr(counts[rows:]), build.ptr(out), n_words,
-             build.stream()]
-    build.check(getattr(build.library(), "pt_" + name)(*args), name)
+    status = build.scratch("rle_encode.status", -(-rows // GROUP) + 1,
+                           torch.int64, table.device, zero=True)
+    err = getattr(build.library(), "pt_" + name)(
+        build.ptr(table), rows, build.ptr(status), build.ptr(out), n_words,
+        build.stream())
+    build.check(err, name)
     kernels.LAUNCHES[name] += 1
     return out
 
@@ -173,8 +169,8 @@ def rle_encode_u8_v2(table):
     n_words = buffer_words(table.shape[0])
     out = torch.empty((n_words // 2,), dtype=torch.int32,
                       device=table.device)
-    return _launch("rle_encode_u8_v2", table, 4, out, n_words,
-                   True).view(torch.uint16)
+    return _launch("rle_encode_u8_v2", table, out,
+                   n_words).view(torch.uint16)
 
 
 def rle_encode_u8(table):
@@ -184,7 +180,7 @@ def rle_encode_u8(table):
         return rle_encode_u8_plain(table)
     _check(table, torch.uint8, "rle_encode_u8", 1 << 24)
     out = torch.empty((V1_WORDS,), dtype=torch.uint32, device=table.device)
-    return _launch("rle_encode_u8", table, 4, out, V1_WORDS, False)
+    return _launch("rle_encode_u8", table, out, V1_WORDS)
 
 
 def rle_encode_u16_v2(table):
@@ -195,5 +191,5 @@ def rle_encode_u16_v2(table):
     _check(table, torch.uint16, "rle_encode_u16_v2")
     n_words = buffer_words_u16(table.shape[0])
     out = torch.empty((n_words,), dtype=torch.uint32, device=table.device)
-    return _launch("rle_encode_u16_v2", table, 8, out, n_words, True)
+    return _launch("rle_encode_u16_v2", table, out, n_words)
 

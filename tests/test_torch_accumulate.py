@@ -34,6 +34,7 @@ from patolette_tpu_torch.kernels import build
 from patolette_tpu_torch.kernels.kmeans import kmeans_step, kmeans_step_plain
 from patolette_tpu_torch.kernels.segment import segment_sum, segment_sum_plain
 from patolette_tpu_torch.models import kmeans as TKM
+from test_torch_cores import share_cores  # noqa: F401
 
 
 def _t(a):

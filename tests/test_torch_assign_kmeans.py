@@ -19,6 +19,7 @@ from patolette_tpu.ops import assign as JA
 from patolette_tpu_torch.kernels.kmeans import kmeans_step
 from patolette_tpu_torch.models import kmeans as TKM
 from patolette_tpu_torch.ops import assign as TA
+from test_torch_cores import share_cores  # noqa: F401
 
 
 def _planar(x):

@@ -19,6 +19,7 @@ import torch
 
 from patolette_tpu.ops import colorspace as J
 from patolette_tpu_torch.ops import colorspace as T
+from test_torch_cores import share_cores  # noqa: F401
 
 SPACES = {0: "sRGB", 1: "CIELuv", 2: "ICtCp"}
 WORKING_ATOL = {0: 0.0, 1: 1e-3, 2: 5e-5}

@@ -23,6 +23,7 @@ from patolette_tpu_torch.kernels.colorspace import (TARGETS, color_convert,
                                                     color_convert_plain)
 from patolette_tpu_torch.models import pipeline as TP
 from patolette_tpu_torch.ops import colorspace as T
+from test_torch_cores import share_cores  # noqa: F401
 
 SPACES = (0, 1, 2)
 INV255 = np.float32(1.0 / 255.0)

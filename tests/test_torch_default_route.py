@@ -30,6 +30,7 @@ import patolette_tpu as jpt
 import patolette_tpu_torch as tpt
 from patolette_tpu.models import pipeline as JP
 from patolette_tpu.ops import colorspace as JCS
+from test_torch_cores import share_cores  # noqa: F401
 
 W, H, P = 520, 512, 64
 

@@ -44,6 +44,7 @@ import patolette_tpu as jpt
 from patolette_tpu.ops import colorspace as JCS
 from patolette_tpu.parallel import mesh as JM
 from patolette_tpu_torch.ops import colorspace as TCS
+from test_torch_cores import share_cores  # noqa: F401
 
 REPO = str(pathlib.Path(__file__).resolve().parent.parent)
 TIMEOUT_S = 300

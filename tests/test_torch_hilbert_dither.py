@@ -28,6 +28,7 @@ from patolette_tpu_torch.kernels.dither import (QUEUE_WEIGHTS, dither_scan,
 from patolette_tpu_torch.kernels.hilbert import xy_to_d
 from patolette_tpu_torch.models import dither as TD
 from patolette_tpu_torch.ops import hilbert as TH
+from test_torch_cores import share_cores  # noqa: F401
 
 
 def test_curve_order_matches():

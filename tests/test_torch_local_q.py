@@ -17,6 +17,7 @@ from patolette_tpu.models import local_q as JLQ
 from patolette_tpu.models import pipeline as JP
 from patolette_tpu_torch.models import local_q as TLQ
 from patolette_tpu_torch.utils.carry import state_from_numpy
+from test_torch_cores import share_cores  # noqa: F401
 
 
 def _blobs(n=12000, k=6, seed=0):

@@ -30,6 +30,7 @@ from patolette_tpu_torch.kernels.lut import lut_argmin_plain
 from patolette_tpu_torch.ops import colorspace as cs
 from patolette_tpu_torch.ops import lut as TL
 from patolette_tpu_torch.ops.assign import assign_planar
+from test_torch_cores import share_cores  # noqa: F401
 
 SUBSET = np.arange(0, 1 << 24, 64, dtype=np.int32)  # 2^18 codes
 

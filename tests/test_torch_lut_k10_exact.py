@@ -38,6 +38,7 @@ from patolette_tpu_torch.kernels import lut as KL
 from patolette_tpu_torch.kernels.assign import assign_planar_plain
 from patolette_tpu_torch.ops import colorspace as cs
 from patolette_tpu_torch.ops import lut as TL
+from test_torch_cores import share_cores  # noqa: F401
 
 PATCHES = 128  # of each layout
 

@@ -35,6 +35,7 @@ import patolette_tpu_torch as tpt
 from patolette_tpu.models import pipeline as JP
 from patolette_tpu_torch.models import pipeline as TP
 from patolette_tpu_torch.ops import colorspace as TCS
+from test_torch_cores import share_cores  # noqa: F401
 
 ICTCP = dict(dither=False, tile_size=0, color_space=tpt.ColorSpace_ICtCp)
 

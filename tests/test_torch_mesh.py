@@ -39,6 +39,7 @@ from patolette_tpu_torch.ops import colorspace as TCS
 from patolette_tpu_torch.ops import lut as TL
 from patolette_tpu_torch.parallel import distributed as TD
 from patolette_tpu_torch.parallel.mesh import Mesh
+from test_torch_cores import share_cores  # noqa: F401
 
 W, H, P = 64, 64, 16
 

@@ -19,6 +19,7 @@ from patolette_tpu.ops import moments as JM
 from patolette_tpu_torch.kernels.segment import segment_sum, segment_sum_plain
 from patolette_tpu_torch.ops import eigen3 as TE
 from patolette_tpu_torch.ops import moments as TM
+from test_torch_cores import share_cores  # noqa: F401
 
 
 def _t(a):

@@ -37,6 +37,7 @@ from patolette_tpu.ops import colorspace as JCS
 from patolette_tpu_torch.models import pipeline as TP
 from patolette_tpu_torch.utils import errors
 from patolette_tpu_torch.utils.carry import options_from_fields
+from test_torch_cores import share_cores  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN_PATH = REPO / "tests" / "golden" / "quantize_golden.npz"

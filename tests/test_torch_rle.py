@@ -20,6 +20,7 @@ from patolette_tpu_torch.kernels.rle import (MAX_RUNS, buffer_words, header,
                                              rle_encode_u8_v2)
 from patolette_tpu_torch.ops import colorspace as TCS
 from patolette_tpu_torch.ops import lut as TL
+from test_torch_cores import share_cores  # noqa: F401
 
 
 def _voronoi(length, k, seed, start=None):

@@ -42,6 +42,7 @@ from patolette_tpu.ops import lut as JL
 from patolette_tpu_torch.kernels import rle as TR
 from patolette_tpu_torch.models import pipeline as TP
 from patolette_tpu_torch.ops import lut as TL
+from test_torch_cores import share_cores  # noqa: F401
 
 N = 1 << 24
 MAX_RUNS = TR.MAX_RUNS

@@ -23,6 +23,7 @@ from patolette_tpu.ops import colorspace as JCS
 from patolette_tpu_torch.kernels.mbd import mbd, mbd_plain
 from patolette_tpu_torch.models import saliency as TS
 from patolette_tpu_torch.ops import colorspace as TCS
+from test_torch_cores import share_cores  # noqa: F401
 
 
 @pytest.mark.parametrize("shape", [(24, 24), (17, 45), (45, 17), (4, 4)])

@@ -27,6 +27,7 @@ from patolette_tpu.ops import assign as JA
 from patolette_tpu_torch.kernels import assign as KA
 from patolette_tpu_torch.kernels.dither import dither_scan_plain, palette_table
 from patolette_tpu_torch.ops import hilbert as TH
+from test_torch_cores import share_cores  # noqa: F401
 
 # two sorted tiles and a ragged third
 N_GROUPED = 2 * KA.SORT_TILE + 300

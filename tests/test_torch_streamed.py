@@ -33,6 +33,7 @@ from patolette_tpu_torch.kernels.colorspace import color_convert
 from patolette_tpu_torch.models import pipeline as TP
 from patolette_tpu_torch.ops import colorspace as TCS
 from patolette_tpu_torch.ops.assign import assign_planar
+from test_torch_cores import share_cores  # noqa: F401
 
 W, H, STRIP = 96, 64, 16
 P = 16

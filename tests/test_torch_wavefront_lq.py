@@ -38,6 +38,7 @@ from patolette_tpu_torch.kernels.lq import lq_candidates, lq_candidates_plain
 from patolette_tpu_torch.kernels.mbd import mbd, mbd_plain
 from patolette_tpu_torch.models import local_q as TLQ
 from patolette_tpu_torch.utils.carry import state_from_numpy
+from test_torch_cores import share_cores  # noqa: F401
 
 
 def _mbd_planes(img):
