@@ -40,7 +40,11 @@ Phases, each printing one JSON line:
      formats on a table whose runs cross every group boundary and on one
      that ends in an overflowing 128-block (kernel-k6-cases); K4 with a
      reduction between its two halves must match its plain version as
-     without one. K1 is timed at GQ's 512x11, the palette's 256x4 and the
+     without one; K11 (the GQ DP) must equal its plain version in prefix,
+     level costs, cut rows and chains, and give gq_device the same cuts
+     and k, on the 4K and 2048x2048 images' bucket moments, random
+     moments, empty buckets, all mass in one bucket, p = 1, 2 and 12, NaN
+     and +-inf buckets (kernel-k11-cases). K1 is timed at GQ's 512x11, the palette's 256x4 and the
      LQ loop's 16x11 and 12x4 (id S: no candidate), K4 at P = 256 and
      P_LARGE, K2 at the random case and on the inputs of the LQ loop's own
      call at its median member share (logged from one 4K e2e call) (their
@@ -80,6 +84,17 @@ Phases, each printing one JSON line:
      dither must not lose to the undithered map on 8x8 block means, peak
      bytes per pixel at or below BYTES_PER_PIXEL_SALIENCY_OR_DITHER),
      float32 and uint8;
+  5b. e2e-one-shot and e2e-one-shot-default: the one-shot route at
+     2048x2048 (2^22 pixels), 256 colours, undithered with 32 KMeans
+     iterations and the library's default call: K11, K1, K2, K4, K10 and
+     K3 (or K9, K7, K8) must launch, the palette core runs under
+     torch.cuda.set_sync_debug_mode("error") (any host read in it fails
+     the phase), bit-identical reruns, peak bytes per pixel at or below
+     the route's ONE_SHOT_BYTES_PER_PIXEL(_SALIENCY_OR_DITHER), the
+     device-budget guard's model for it, the CIELuv MSE within
+     ONE_SHOT_MSE_RATIO of the resident route's (PATOLETTE_NO_ONE_SHOT)
+     on the same call, the dither checks on the default call; the host
+     syncs of a whole call are counted (sync debug mode "warn");
   6. e2e-headline: bench.py's call through the port (10000x10000 uint8,
      256 colours, 25 KMeans iterations, ICtCp, no dither or saliency): one
      warm call, best of 3, the launch and repeat checks, CIELuv MSE on a
@@ -114,7 +129,7 @@ Phases, each printing one JSON line:
      MESH4_DEFAULT_RATIO of world 1's at each seed of MESH4_SEEDS (the
      call without saliency is reported beside them);
   9. golden: the 96x64 inputs against tests/golden/quantize_golden.npz;
- 10. split: K1, K2, K4, K9, K3, K8, K7, K5, K6 and K10 alone at the
+ 10. split: K1, K2, K4, K9, K3, K8, K7, K5, K6, K10 and K11 alone at the
      kernels phase's shapes (K9 also at a mesh-4 rank's strip), each launch's
      device time (torch.profiler) and the enqueue rate, index_add_ beside
      K1 and, on
@@ -129,8 +144,9 @@ with ``--root DIR`` on the kernels of the checkout at DIR (a parent's,
 unpacked with git archive), so two versions can be timed in turns in one
 call.
 With ``--laps`` it runs only the device, build and laps phases (the
-uint8 LUT call's, the default call's, the headline call's and the 100 MP
-strip dither's walls and laps, several rounds), with ``--root DIR`` too.
+uint8 LUT call's, the default call's, the headline call's, the 100 MP
+strip dither's and the two 2048x2048 calls' walls and laps, several
+rounds), with ``--root DIR`` too.
 With ``--profile`` the e2e phases (and e2e-mesh-u8) also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
 DIR`` the ptxas report, the profiler tables and every JSON line
@@ -142,6 +158,7 @@ without the package beside it) it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import pathlib
@@ -150,6 +167,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEV = "cuda"
@@ -164,6 +182,8 @@ HEADLINE_W, HEADLINE_H = 10000, 10000
 # of about the size of the 100 MP call's 6
 STRIP_33MP_W, STRIP_33MP_H = 7680, 4320
 ROUTE_SHAPES = ((2048, 2048), (3840, 2160), (7680, 4320))
+# the one-shot route's largest image: exactly 2^22 pixels
+ONE_SHOT_W, ONE_SHOT_H = 2048, 2048
 
 
 def _out_dir():
@@ -1733,6 +1753,142 @@ def kernel_k10_pow(torch):
             for k, v in out.items()}
 
 
+# K11's chain: the levels of the DP depend on each other
+def k11_chain_cycles(k_max, b=512):
+    """The least latency of K11's work in cycles, with every independent
+    operation issued at once: the prefix as a tree scan (log2(b) levels of
+    one addition), one cell cost D(t, n) (a level-independent table: a
+    difference, a product, two sums, the quotient (counted as one), the
+    difference and the clamp: 7), then at each level after the first the
+    candidate's sum E_{k-1}[t] + D(t, n) (1) and the minimum over up to b
+    candidates as a tree (log2(b) levels of a compare and a select)."""
+    import math
+
+    lg = math.ceil(math.log2(b))
+    return LAT_F32 * (lg + 7 + (k_max - 1) * (1 + 2 * lg))
+
+
+def _k11_random_moments(seed, b=512):
+    """Bucket moments (b, 11) f32 of random anisotropic points in random
+    buckets (tests/test_torch_one_shot.py's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1000, 5000))
+    x = rng.normal(size=(n, 3)) * rng.uniform(0.1, 2, 3)
+    x -= x.mean(0)
+    f = np.concatenate([np.ones((n, 1)), x, (x * x).sum(1)[:, None],
+                        x[:, 0:1] * x[:, 0:3], x[:, 1:2] * x[:, 1:3],
+                        x[:, 2:3] * x[:, 2:3]], 1)
+    bm = np.zeros((b, 11))
+    np.add.at(bm, rng.integers(0, b, n), f)
+    return bm.astype(np.float32)
+
+
+def image_bucket_moments(torch, w, h):
+    """The one-shot route's GQ bucket moments of the w x h synthetic image
+    (ICtCp, its 2^18-pixel LQ draw), on the card."""
+    from patolette_tpu_torch.kernels.colorspace import color_convert
+    from patolette_tpu_torch.models import kmeans as KM
+    from patolette_tpu_torch.models import pipeline
+
+    x = torch.from_numpy(synth_image_f32(w, h)).to(DEV)
+    planes = color_convert(x, 2, "working")
+    x_lq, _ = pipeline._subsample_device(
+        planes, None, N_SAMPLES, KM.device_generator(x.device, 1234, 0))
+    return pipeline._gq_bucket_stage(x_lq)[1].contiguous()
+
+
+def _same_bits(torch, a, b):
+    """Equal values, NaN where NaN (-0 equals 0)."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def kernel_k11(torch, rows):
+    """K11 (the GQ DP) against its plain version on the card: prefix,
+    level costs, cut rows and chains identical, and gq_device's cuts and k
+    through either, on the bucket moments of the 4K and the 2048x2048
+    images, random moments, empty buckets, all mass in one bucket, p = 1,
+    2 and 12, a NaN bucket (in w2 and in w0), +inf and -inf."""
+    import numpy as np
+
+    from patolette_tpu_torch.kernels import gq as KGQ
+    from patolette_tpu_torch.models import global_q as GQ
+
+    bm4k = image_bucket_moments(torch, W, H)
+    bm2k = image_bucket_moments(torch, ONE_SHOT_W, ONE_SHOT_H)
+    rnd = _k11_random_moments(1)
+    cases = {"4k": (bm4k, 12), "2048": (bm2k, 12),
+             "4k_p1": (bm4k, 1), "4k_p2": (bm4k, 2)}
+    for name, mutate in (
+            ("random", None), ("empty", "empty"),
+            ("one_bucket", "one_bucket"), ("nan_w2", (200, 4, np.nan)),
+            ("nan_w0", (300, 0, np.nan)), ("posinf", (100, 1, np.inf)),
+            ("neginf", (300, 4, -np.inf))):
+        bm = rnd.copy()
+        if mutate == "empty":
+            bm[:] = 0
+        elif mutate == "one_bucket":
+            total = bm.sum(0)
+            bm[:] = 0
+            bm[37] = total
+        elif mutate is not None:
+            bm[mutate[0], mutate[1]] = mutate[2]
+        cases[name] = (torch.from_numpy(bm).to(DEV), 12)
+        for k_max in (1, 2):
+            if name in ("random", "nan_w2"):
+                cases[f"{name}_p{k_max}"] = (cases[name][0], k_max)
+
+    out = {}
+    for name, (bm, k_max) in cases.items():
+        got = KGQ.gq_dp(bm, k_max)
+        want = KGQ.gq_dp_plain(bm, k_max)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("prefix", "cost", "cut", "chains"), got,
+                              want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"K11 {name}: {what} shape or type")
+            check(_same_bits(torch, g, w), f"K11 {name}: {what} differs")
+        dev_cuts, dev_k = GQ.gq_device(bm, k_max)
+        GQ.gq_dp = KGQ.gq_dp_plain
+        try:
+            plain_cuts, plain_k = GQ.gq_device(bm, k_max)
+        finally:
+            GQ.gq_dp = KGQ.gq_dp
+        check(torch.equal(dev_cuts, plain_cuts)
+              and int(dev_k) == int(plain_k), f"K11 {name}: cuts or k")
+        out[name] = [int(dev_k), dev_cuts[:int(dev_k) + 1].tolist()]
+    emit({"phase": "kernel-k11-cases", "cases": out})
+
+    bm = bm2k
+    ms = time_ms(lambda: KGQ.gq_dp(bm, 12), reps=30)
+    plain = time_ms(lambda: KGQ.gq_dp_plain(bm, 12), reps=3, warm=1)
+    b = bm.shape[0]
+    cand = sum(max(0, n - k + 1) for k in range(2, 13) for n in range(b + 1))
+    nbytes = 4 * (b * 11 + (b + 1) * 11 + 12 * (b + 1) + 13 * (b + 1)
+                  + 12 * 13)
+    # the work the function needs: D(t, n) does not depend on the level,
+    # so each of the b (b + 1) / 2 cells once (12 f32 operations: 5
+    # differences, 3 products, 2 sums, the quotient, the difference), then
+    # 2 a candidate (the level's sum, the compare), and the prefix's 11 b
+    # sums, none fusable: at the instruction rate
+    cells = b * (b + 1) // 2
+    t_ops = (12 * cells + 2 * cand + 11 * b) / PEAK_F32_INSTR * 1e3
+    t_chain = k11_chain_cycles(12, b) / sm_clock_hz() * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    parts = {"bytes": t_bytes, "operations": t_ops, "chain": t_chain}
+    binding = max(parts, key=parts.get)
+    rows.append(dict(name="gq_dp", shape=[b, 12], max_abs_err=0.0, ms=ms,
+                     plain_ms=plain, library_ms=None,
+                     bound_ms=parts[binding],
+                     # the chain is a bound of dependent operations
+                     bound_by="bytes" if binding == "bytes"
+                     else "operations",
+                     bound_binding=binding, bound_parts_ms=parts,
+                     dp_cells=cells,
+                     dp_candidates=cand))
+
+
 def _k2_feats(torch, colors, wm, cand, tab):
     """The bf16-rounded features K2 sums, op for op its plain version's
     (written out here: ``--split --root`` runs a parent's kernels)."""
@@ -1750,7 +1906,7 @@ K9_SPLIT_SHAPES = ((H, W), (H // 4, W))
 
 
 def phase_split(torch):
-    """K1, K2, K4, K9, K3, K8, K7, K5, K6 and K10 alone: CUDA-event ms of
+    """K1, K2, K4, K9, K3, K8, K7, K5, K6, K10 and K11 alone: CUDA-event ms of
     a wrapper call, the enqueue rate, each launch's device time
     (launch_split);
     index_add_ beside K1, and beside K2 on K2's own keys and precomputed
@@ -1913,6 +2069,15 @@ def phase_split(torch):
               "ms": time_ms(lambda: color_convert(x, c, target)),
               "split": launch_split(
                   torch, lambda: color_convert(x, c, target), reps=10)})
+    # K11, where the package has it (a parent may not)
+    if importlib.util.find_spec("patolette_tpu_torch.kernels.gq"):
+        from patolette_tpu_torch.kernels.gq import gq_dp
+
+        bm = image_bucket_moments(torch, ONE_SHOT_W, ONE_SHOT_H)
+        emit({"phase": "split", "kernel": "gq_dp", "shape": [512, 12],
+              "ms": time_ms(lambda: gq_dp(bm, 12), reps=30),
+              "enqueue_ms": enqueue_ms(lambda: gq_dp(bm, 12)),
+              "split": launch_split(torch, lambda: gq_dp(bm, 12))})
 
 
 LAPS_ROUNDS = 8
@@ -1920,8 +2085,10 @@ LAPS_ROUNDS = 8
 
 def phase_laps(torch, rounds=LAPS_ROUNDS):
     """The walls and laps of the 4K uint8 LUT call, the 4K default call,
-    bench.py's headline call (100 MP uint8) and the same image dithered on
-    strips (strip-headline), each warmed up, then
+    bench.py's headline call (100 MP uint8), the same image dithered on
+    strips (strip-headline) and the two 2048x2048 calls of e2e-one-shot
+    (the one-shot route; a parent without it runs them resident), each
+    warmed up, then
     ``rounds`` rounds of one plain call (wall, laps) and one synced call
     (laps) of each, the calls in turns. With ``--root DIR`` on another
     checkout's package (a parent's), so that two trees can run in turns, a
@@ -1944,8 +2111,15 @@ def phase_laps(torch, rounds=LAPS_ROUNDS):
     calls["e2e-strip-headline"] = (calls["e2e-headline"][0],
                                    dict(dither=True, tile_size=0,
                                         kmeans_niter=25))
+    img2k = synth_image_f32(ONE_SHOT_W, ONE_SHOT_H)
+    calls["e2e-one-shot"] = (img2k, dict(dither=False, tile_size=0,
+                                         kmeans_niter=32,
+                                         color_space=pt.ColorSpace_ICtCp))
+    calls["e2e-one-shot-default"] = (img2k, {})
     shapes = {"e2e-headline": (HEADLINE_W, HEADLINE_H),
-              "e2e-strip-headline": (HEADLINE_W, HEADLINE_H)}
+              "e2e-strip-headline": (HEADLINE_W, HEADLINE_H),
+              "e2e-one-shot": (ONE_SHOT_W, ONE_SHOT_H),
+              "e2e-one-shot-default": (ONE_SHOT_W, ONE_SHOT_H)}
 
     def run(name, **extra):
         colors, kw = calls[name]
@@ -1960,7 +2134,7 @@ def phase_laps(torch, rounds=LAPS_ROUNDS):
         run(name)
         run(name)
     laps = ("lq", "saliency", "sample-in", "lut-build", "lut-build+pull",
-            "lut-map-host", "dither")
+            "lut-map-host", "dither", "nn-map", "palette", "one-shot")
     out = {name: {k: [] for k in ("wall_s", *laps,
                                   *(f"{lap}_synced" for lap in laps))}
            for name in calls}
@@ -2002,6 +2176,7 @@ def phase_kernels(torch):
     kernel_k8_cases(torch)
     kernel_k9(torch, rows)
     kernel_k10(torch, rows)
+    kernel_k11(torch, rows)
     # the e2e phases' peak device memory counts what their calls hold
     build.clear_scratch()
     for r in rows:
@@ -2287,8 +2462,8 @@ def _drive(torch, run, colors, path_kernels, what):
 
 
 def _check_footprint(stats, n, name):
-    """Peak device bytes per pixel of a resident call, held to the
-    pipeline's constant of that name (the budget's footprint model)."""
+    """Peak device bytes per pixel of a call, held to the pipeline's
+    constant of that name (the budget's footprint model of its route)."""
     from patolette_tpu_torch.models import pipeline
 
     bpp = stats["peak_device_bytes"] / n
@@ -2758,6 +2933,143 @@ def phase_e2e_default(torch, profile=False):
           **{"uint8_" + k: v for k, v in quality8.items()},
           "bit_identical_runs": True})
     return stats["launches"]
+
+
+ONE_SHOT_PATH_KERNELS = ("gq_dp", "segment_sum", "lq_candidates",
+                         "kmeans_step", "color_convert", "assign_planar")
+ONE_SHOT_DEFAULT_KERNELS = ("gq_dp", "segment_sum", "lq_candidates",
+                            "kmeans_step", "color_convert", "mbd",
+                            "visit_order", "dither_scan")
+# the one-shot call's CIELuv MSE against the resident route's on the same
+# call (their draws differ: torch.Generator on the card, numpy on the host)
+ONE_SHOT_MSE_RATIO = 1.02
+
+
+class _StrictPaletteCore:
+    """Runs ``pipeline._palette_core`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host read inside it
+    raises. Counts the calls."""
+
+    def __init__(self, torch):
+        from patolette_tpu_torch.models import pipeline
+
+        self.torch, self.pipeline = torch, pipeline
+        self.calls = 0
+
+    def __enter__(self):
+        torch, orig = self.torch, self.pipeline._palette_core
+
+        def strict(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*args, **kw)
+            except RuntimeError:  # quantize() reports only the message
+                traceback.print_exc(file=sys.stderr)
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                self.calls += 1
+
+        self.orig = orig
+        self.pipeline._palette_core = strict
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline._palette_core = self.orig
+
+
+def _host_syncs(torch, call):
+    """Synchronizing CUDA operations of one call (the sync debug mode's
+    warnings: the upload, the read back and whatever else waits)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_e2e_one_shot(torch, profile=False):
+    """The one-shot route at its largest size, 2048x2048 (exactly 2^22
+    pixels), 256 colours, ICtCp: undithered with 32 KMeans iterations, and
+    the library's default call. Each call's path kernels must launch (K11
+    among them), its palette core must run with no host read (sync debug
+    mode "error"), two runs must agree bit for bit, its peak device bytes
+    a pixel must stay within the route's footprint model (the pipeline's
+    ONE_SHOT_BYTES_PER_PIXEL*), and its CIELuv MSE must be within
+    ONE_SHOT_MSE_RATIO of the resident route's
+    (PATOLETTE_NO_ONE_SHOT) on the same call; the default call also passes
+    the dither checks."""
+    import numpy as np
+
+    import patolette_tpu_torch as pt
+
+    w, h, p = ONE_SHOT_W, ONE_SHOT_H, 256
+    img = synth_image_f32(w, h)
+    calls = (("e2e-one-shot", dict(dither=False, tile_size=0,
+                                   kmeans_niter=32,
+                                   color_space=pt.ColorSpace_ICtCp),
+              ONE_SHOT_PATH_KERNELS),
+             ("e2e-one-shot-default", {}, ONE_SHOT_DEFAULT_KERNELS))
+    launches = {}
+    for name, kw, path in calls:
+        def run(colors, **extra):
+            ok, pal, pmap, msg = pt.quantize(w, h, colors, p, **kw, **extra)
+            check(ok, f"{name} failed: {msg}")
+            return pal, pmap
+
+        with _StrictPaletteCore(torch) as strict:
+            pal, pmap, stats = _drive(torch, run, img, path, name)
+        check(strict.calls >= 5, f"{name}: palette core not reached")
+        check("one-shot" in stats["stage_ms"], f"{name} missed the route")
+        used = _check_outputs(pal, pmap, p, w * h)
+        # the footprint model the device-budget guard holds this route to
+        _check_footprint(stats, w * h, "ONE_SHOT_BYTES_PER_PIXEL" if name
+                         == "e2e-one-shot" else
+                         "ONE_SHOT_BYTES_PER_PIXEL_SALIENCY_OR_DITHER")
+        syncs = _host_syncs(torch, lambda: run(img))
+        os.environ["PATOLETTE_NO_ONE_SHOT"] = "1"
+        try:
+            t0 = time.perf_counter()
+            rpal, rmap = run(img)
+            resident_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rpal, rmap = run(img)
+            resident_s = min(resident_s, time.perf_counter() - t0)
+            from patolette_tpu_torch.models import pipeline
+
+            check("lq" in pipeline.LAST_STAGE_TIMES,
+                  f"{name}: the resident call missed its route")
+        finally:
+            del os.environ["PATOLETTE_NO_ONE_SHOT"]
+        mse = _mse_luv(torch, img, pal, pmap)[0]
+        mse_res = _mse_luv(torch, img, rpal, rmap)[0]
+        check(np.isfinite(mse) and mse <= ONE_SHOT_MSE_RATIO * mse_res,
+              f"{name}: CIELuv MSE {mse} against the resident route's "
+              f"{mse_res}")
+        extra = {}
+        if kw.get("dither", True):
+            extra = _dither_quality(torch, img, pal, pmap, w, h, name)
+        if profile:
+            _profile_call(torch, lambda: run(img), name)
+        emit({"phase": name, "shape": [w, h], "palette": p,
+              "kmeans_niter": 32, **stats,
+              "mp_per_s": w * h / 1e6 / stats["best_s"],
+              "peak_device_bytes_per_pixel":
+                  stats["peak_device_bytes"] / (w * h),
+              "palette_core_sync_debug": "error",
+              "palette_core_calls": strict.calls,
+              "host_syncs_whole_call": syncs,
+              "cieluv_mse": mse, "cieluv_mse_resident": mse_res,
+              "mse_ratio_to_resident": mse / mse_res,
+              "resident_best_s": resident_s, "palette_used": used,
+              **extra, "bit_identical_runs": True})
+        launches[name] = stats["launches"]
+    return launches["e2e-one-shot"], launches["e2e-one-shot-default"]
 
 
 def _dither_quality(torch, colors, pal, pmap, w, h, what):
@@ -3376,6 +3688,8 @@ SOURCES = {
                       "patolette_tpu/ops/lut.py:187", "u8-lut-v1"),
     "rle_encode_u16_v2": ("patolette_tpu_torch/csrc/rle.cu",
                           "patolette_tpu/ops/lut.py:270", "u16-lut"),
+    "gq_dp": ("patolette_tpu_torch/csrc/gq_dp.cu",
+              "patolette_tpu/models/global_q.py:205", "one-shot"),
 }
 
 
@@ -3427,6 +3741,8 @@ def main():
                 "u8-lut-v1": phase_e2e_u8_ramp(torch),
                 "default": phase_e2e_default(torch, profile=profile),
                 **pull_launches}
+    launches["one-shot"], launches["one-shot-default"] = phase_e2e_one_shot(
+        torch, profile=profile)
     img_100mp, launches["u16-lut"], mse_headline = phase_e2e_headline(
         torch, peak_u8)
     launches["strip-dither"] = phase_e2e_strip_dither(torch, profile=profile)

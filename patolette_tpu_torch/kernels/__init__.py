@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the port and their plain-PyTorch twins.
 
 One module per kernel: ``segment`` (K1), ``lq`` (K2), ``assign`` (K3),
-``kmeans`` (K4), ``lut`` (K5), ``rle`` (K6), ``hilbert`` (K7), ``dither`` (K8), ``mbd``
-(K9), ``colorspace`` (K10). Each wrapper takes the twin for tensors on the CPU and launches its
-kernel (or raises) for tensors on the card; ``LAUNCHES`` counts the wrapper
+``kmeans`` (K4), ``lut`` (K5), ``rle`` (K6), ``hilbert`` (K7), ``dither``
+(K8), ``mbd`` (K9), ``colorspace`` (K10), ``gq`` (K11). Each wrapper takes
+the twin for tensors on the CPU and launches its kernel (or raises) for
+tensors on the card; ``LAUNCHES`` counts the wrapper
 calls that launched, so a run can show that its path went through them.
 """
 
@@ -20,6 +21,7 @@ LAUNCHES = {
     "dither_scan": 0,
     "mbd": 0,
     "color_convert": 0,
+    "gq_dp": 0,
 }
 
 

@@ -32,7 +32,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "kernels"
 SOURCES = ("segment_sum.cu", "lq_candidates.cu", "assign.cu", "kmeans.cu",
            "hilbert.cu", "dither.cu", "mbd.cu", "lut.cu", "colorspace.cu",
-           "rle.cu")
+           "rle.cu", "gq_dp.cu")
 HEADERS = ("common.cuh", "nearest.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -63,6 +63,7 @@ SIGNATURES = {
     "pt_rle_encode_u8_v2": (_P, _I, _P, _P, _L, _P),
     "pt_rle_encode_u8": (_P, _I, _P, _P, _L, _P),
     "pt_rle_encode_u16_v2": (_P, _I, _P, _P, _L, _P),
+    "pt_gq_dp": (_P, _I, _I, _P, _P, _P, _P, _P),
 }
 
 HOST_SOURCE = "lut_map.cpp"

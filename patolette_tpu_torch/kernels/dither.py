@@ -10,6 +10,8 @@ for bit.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from patolette_tpu_torch import kernels
@@ -32,8 +34,10 @@ G_WEIGHT = 0.8234075540095561
 B_WEIGHT = 0.2435159132377184
 
 
+@functools.lru_cache(maxsize=None)
 def _params(device):
-    """The 16 queue weights then the 3 channel weights, f32."""
+    """The 16 queue weights then the 3 channel weights, f32 (made once a
+    device: a copy from the host would wait for the device each call)."""
     return torch.tensor(QUEUE_WEIGHTS + (R_WEIGHT, G_WEIGHT, B_WEIGHT),
                         dtype=torch.float32, device=device)
 

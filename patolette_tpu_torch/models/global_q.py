@@ -1,10 +1,17 @@
 """Global principal quantization (GQ).
 
-Port of the host path of ``patolette_tpu/models/global_q.py``: Wu's
-dynamic-programming optimal 1-D partition of the colors projected on their
-global principal axis (reference global.c). The per-bucket moments come
-from the device (K1); the DP runs here in numpy f64 on the (513, 11)
-prefix moments, as the JAX package's staged route does.
+Port of ``patolette_tpu/models/global_q.py``: Wu's dynamic-programming
+optimal 1-D partition of the colors projected on their global principal
+axis (reference global.c). The per-bucket moments come from the device
+(K1). Two implementations, as in the JAX package:
+
+* :func:`gq_host`: numpy f64 on the (513, 11) prefix moments, as the JAX
+  package's staged route runs it (the sampled, streamed, resident and
+  sharded routes).
+* :func:`gq_device`: the DP on the device (K11, ``kernels/gq.py``) and the
+  termination test in torch glue, with no host read; the one-shot route
+  and ``palette_pipeline_device`` run it, as the JAX package's one-shot
+  program runs its ``gq_device``.
 
 Semantics kept (see the JAX module for the reference citations): 512
 buckets, at most 12 cells, bias thresholds 0.9 / 0.1; unweighted moments
@@ -18,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from patolette_tpu_torch.kernels.gq import cell_distortion, gq_dp
+from patolette_tpu_torch.ops import eigen3
 from patolette_tpu_torch.ops import moments as M
 
 BUCKET_COUNT = 512
@@ -129,10 +138,63 @@ def gq_host(bucket_moments, palette_size):
     return result
 
 
+def _norm3(v):
+    return torch.sqrt(M.sum3(v * v))
+
+
+def _cell_bias_device(prefix, a, b, global_axis):
+    """|cos angle(cell principal axis, global axis)| clamped to <= 1 for
+    the cells ``(a, b]`` (any shape of index tensors), 0 for an empty cell
+    (JAX ``global_q.py:190-202``)."""
+    mom = prefix[b] - prefix[a]
+    cell_axis, _ = eigen3.principal_axis(M.moments_cov(mom))
+    norms = _norm3(cell_axis) * _norm3(global_axis)
+    cosv = M.sum3(cell_axis * global_axis) / torch.clamp_min(norms, DELTA)
+    bias = torch.where(norms < DELTA, 0.0,
+                       torch.clamp_max(torch.abs(cosv), 1.0))
+    return torch.where(mom[..., M.IDX_W0] <= 0, 0.0, bias)
+
+
+def gq_device(bucket_moments, palette_size: int):
+    """GQ with no host read (JAX ``global_q.py:205-293``): the DP of every
+    level up to ``min(12, palette_size)`` (K11), then each level's
+    termination test on the device, batched over the levels; the first
+    level that stops the refinement is the result. Returns ``(cuts, k)``:
+    cuts int32 (13,) padded with ``BUCKET_COUNT`` beyond position k, k a
+    0-d int32 tensor."""
+    bm = bucket_moments
+    b = bm.shape[0]
+    dev = bm.device
+    k_max = min(MAX_K, int(palette_size))
+    prefix, _, _, chains = gq_dp(bm.contiguous(), k_max)
+    global_axis, _ = eigen3.principal_axis(M.moments_cov(prefix[b]))
+
+    # Termination flags for levels 1..k_max, on each level's quantizer
+    # before it is refined (global.c:244-254).
+    starts = chains[:, :-1].long()
+    ends = chains[:, 1:].long()
+    lv = torch.arange(1, k_max + 1, device=dev)
+    live = torch.arange(MAX_K, device=dev)[None, :] < lv[:, None]
+    cell_d = torch.where(
+        live, cell_distortion(prefix[starts], prefix[ends]), 0.0)
+    distortion = cell_d.sum(dim=1)
+    biases = _cell_bias_device(prefix, starts, ends, global_axis)
+    contrib = torch.where(
+        live & (biases >= CELL_BIAS_THRESHOLD),
+        (cell_d / torch.clamp_min(distortion, DELTA)[:, None]) * biases,
+        0.0,
+    )
+    term = (distortion < DELTA) | (contrib.sum(dim=1) < BIAS_THRESHOLD)
+    k = torch.where(term & (lv < k_max), lv, k_max).min()
+    cuts = chains.index_select(0, (k - 1).reshape(1))[0]
+    return cuts, k.to(torch.int32)
+
+
 def labels_from_cuts(buckets, cuts):
     """Bucket ids -> GQ cell labels: bucket b is in cell j iff
     q_j < b + 1 <= q_{j+1} (reference global.c:324-340). ``cuts`` is
-    ``[0, q1, ..., qK]`` (a tensor or array)."""
+    ``[0, q1, ..., qK]`` (a tensor or array), optionally padded with
+    ``BUCKET_COUNT`` as :func:`gq_device` pads it."""
     interior = torch.as_tensor(cuts, dtype=torch.int64,
                                device=buckets.device)[1:].contiguous()
     return torch.searchsorted(

@@ -18,10 +18,13 @@ With ``mesh``, the pass-1 and pass-2 segment sums and K2's (C, 512, 5)
 table are summed over the ranks (the JAX package's ``psum``s), so every
 rank takes the same splits from the same reduced values.
 
-The rounds are a Python loop over torch state; the loop reads one integer
-a round (how many clusters split) and stops early. The TPU-only
-constructs (compare-and-select instead of gathers, rank maps instead of
-scatters) are plain gathers and scatters here.
+The rounds are the JAX package's fixed trip count with the loop's state
+on the device (the count, the stop flag, the benefits and child means):
+a round after the palette is full or no split is left changes nothing,
+its picks all going to the dead slot ``p``, so no round reads the host.
+The loop's table writes are rank maps (compares), as in the JAX package:
+on the card an index write waits for the device. The JAX package's
+compare-and-select in place of gathers is a plain gather here.
 """
 
 from __future__ import annotations
@@ -52,6 +55,18 @@ class Candidates(NamedTuple):
     member: torch.Tensor     # (N,) bool: pixel belongs to a candidate
 
 
+def _rank_map(ids, size: int):
+    """``out[c] = j`` where ``ids[j] == c`` (the first such j), else
+    ``len(ids)``, for c in [0, size): the JAX package's ``_rank_map``
+    (``local_q.py:75-85``), a (size, C) compare. An index write into a
+    table waits for the device on the card; this does not."""
+    c = ids.shape[0]
+    eq = (torch.arange(size, dtype=ids.dtype, device=ids.device)[:, None]
+          == ids[None, :])
+    j = torch.argmax(eq.to(torch.int32), dim=1).to(torch.int32)
+    return torch.where(eq.any(dim=1), j, c)
+
+
 def _candidates_segmented(colors, w, labels, ids, p,
                           bucket_count=BUCKET_COUNT, mu_known=None,
                           mesh=None):
@@ -65,9 +80,8 @@ def _candidates_segmented(colors, w, labels, ids, p,
     """
     c = ids.shape[0]
     dev = colors.device
-    slot = torch.full((p + 1,), c, dtype=torch.int32, device=dev)
-    slot[ids.long()] = torch.arange(c, dtype=torch.int32, device=dev)
-    slot[p] = c
+    # each cluster's candidate slot; the dead id p holds no pixels
+    slot = torch.nn.functional.pad(_rank_map(ids, p), (0, 1), value=c)
     cand = slot[labels.long()]
     member = cand < c
     wm = torch.where(member, w, 0.0)
@@ -166,14 +180,20 @@ def top_b(values, b):
 def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
                 bucket_count=BUCKET_COUNT, batch_splits: int = 1,
                 mesh=None):
-    """Greedy splitting from ``k0`` initial clusters up to
-    ``palette_size``. Returns ``(labels (N,) int32, count)``."""
+    """Greedy splitting from ``k0`` initial clusters (an int or a 0-d
+    tensor, <= 12) up to ``palette_size``, with the loop's control on the
+    device (the JAX package's ``lq_quantize``, ``local_q.py:282-430``).
+    Returns ``(labels (N,) int32, count)``, ``count`` a 0-d int32 tensor on
+    ``colors``' device."""
     n = colors.shape[0]
     p = int(palette_size)
     dev = colors.device
     w = (torch.ones((n,), dtype=colors.dtype, device=dev)
          if weights is None else weights.to(colors.dtype))
-    k0 = int(k0)
+    if isinstance(k0, torch.Tensor):
+        k0 = k0.to(device=dev, dtype=torch.int32).reshape(())
+    else:  # a fill, not a host-to-device copy
+        k0 = torch.full((), int(k0), dtype=torch.int32, device=dev)
     max_k0 = min(12, p)
 
     ids0 = torch.arange(max_k0, dtype=torch.int32, device=dev)
@@ -186,44 +206,48 @@ def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
     labels = init_labels.to(torch.int32)
     side = first.side
     count = k0
+    done = torch.zeros((), dtype=torch.bool, device=dev)
 
     bsz = max(1, min(int(batch_splits), (p + 15) // 16, p - 1))
     # Ramp-up headroom: from k0 = 1 it takes ~log2(bsz) doubling rounds
-    # before bsz splits per round are possible.
+    # before bsz splits per round are possible. Extra rounds change
+    # nothing once the palette is full or no benefit is left.
     rounds = -(-(p - 1) // bsz) + max(1, bsz).bit_length()
     j_idx = torch.arange(bsz, dtype=torch.int32, device=dev)
     for _ in range(rounds):
-        if count >= p:
-            break
         vals, sel = top_b(benefit, bsz)
         sel = sel.to(torch.int32)
         # top-B is value-sorted, so the valid picks form a prefix.
         valid = (vals >= DELTA) & (j_idx < p - count)
-        m = int(valid.sum())
-        if m == 0:
-            break
+        m = valid.sum(dtype=torch.int32)
+        active = ~done & (count < p)
+        done = done | (active & (m == 0))  # no benefit left: stop
+        valid = valid & active
+        # invalid picks go to the dead id p: they match no cluster
+        sel_v = torch.where(valid, sel, p)
 
         # Relabel: each picked cluster's cached LEFT side moves to slot
         # count + j (parents are disjoint, so no conflicts).
-        rank = torch.full((p,), -1, dtype=torch.int32, device=dev)
-        rank[sel[:m].long()] = j_idx[:m]
-        jpix = rank[labels.long()]
-        labels = torch.where((jpix >= 0) & side, count + jpix, labels)
+        jpix = _rank_map(sel_v, p)[labels.long()]
+        labels = torch.where((jpix < bsz) & side, count + jpix, labels)
 
         # Left child takes the NEW slot, right child keeps the old one
         # (local.c:372-379); all 2B children in one candidate pass, their
         # means from the parents' cumulative bucket sums.
-        ids2b = torch.cat([count + j_idx, sel])
         valid2 = torch.cat([valid, valid])
-        ids2b = torch.where(valid2, ids2b, p)
+        ids2b = torch.where(valid2, torch.cat([count + j_idx, sel]), p)
         mu_known = torch.cat([mu_child[sel.long(), 0],
                               mu_child[sel.long(), 1]])
         res = _candidates_segmented(colors, w, labels, ids2b, p,
                                     bucket_count, mu_known=mu_known,
                                     mesh=mesh)
         side = torch.where(res.member, res.side, side)
-        live = ids2b[valid2].long()
-        benefit[live] = res.benefit[valid2]
-        mu_child[live] = res.mu_child[valid2]
-        count += m
+        # the new rows by gathers from the rank map (no index writes)
+        rk = _rank_map(ids2b, p)
+        has = rk < 2 * bsz
+        rk = torch.clamp_max(rk, 2 * bsz - 1).long()
+        benefit = torch.where(has, res.benefit[rk], benefit)
+        mu_child = torch.where(has[:, None, None], res.mu_child[rk],
+                               mu_child)
+        count = count + torch.where(active, m, 0)
     return labels, count

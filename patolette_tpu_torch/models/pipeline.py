@@ -1,6 +1,6 @@
 """Quantization pipeline: the public ``quantize`` API of the port.
 
-Four routes, chosen as the JAX package's ``_quantize_body`` chooses them:
+Five routes, chosen as the JAX package's ``_quantize_body`` chooses them:
 
 * **Sampled** (``_quantize_via_samples``, the JAX staged variant): uint8
   undithered images without saliency of at least 4 MP, and every
@@ -18,8 +18,18 @@ Four routes, chosen as the JAX package's ``_quantize_body`` chooses them:
   Dithered calls without saliency above 4 MP take it, and so does any
   call without saliency whose resident footprint exceeds the device
   budget or that runs out of device memory on the resident route.
+* **One-shot** (``_quantize_one_shot``, the JAX package's): images of at
+  most ``ONE_SHOT_MAX_PIXELS`` (4 MP) off the sampled, sharded and
+  streamed routes, unless ``PATOLETTE_NO_ONE_SHOT`` is set. The image goes up, then saliency (K9),
+  K10 to the working space and the palette core (``_palette_core``:
+  device draws, K1 moments, the GQ DP on the device (K11), LQ with its
+  control on the device (K2 with K1), centres, KMeans (K4)), then the
+  dither (K7, K8) or the direct map (K3); nothing is read back until the
+  palette and the map come back together at the end.
+  ``palette_pipeline_device`` is the same core as a function of tensors.
 * **Resident** (``_quantize_resident``, modelled on
-  ``_quantize_full_upload``): sRGB -> weights (explicit, else MBD saliency
+  ``_quantize_full_upload``; above 4 MP, or under
+  ``PATOLETTE_NO_ONE_SHOT``): sRGB -> weights (explicit, else MBD saliency
   with K9 when ``tile_size > 0``) -> working space -> LQ sample draw -> GQ
   -> LQ -> centres (K1) -> KMeans (K4) -> Riemersma dither (K7 curve
   order, K8 scan) or the ICtCp direct map (K3) -> sRGB palette with
@@ -30,10 +40,13 @@ Four routes, chosen as the JAX package's ``_quantize_body`` chooses them:
   download over its host link; the table equals the direct map, so the
   port keeps K3.
 
-Every sample draw is on the host from ``np.random.default_rng(seed)``. The
-resident route's LQ draw is the JAX package's exact draw; its KMeans draw
-follows from the same ``rng`` where the JAX package draws with
-``jax.random`` (README divergence T1).
+The staged routes draw their samples on the host from
+``np.random.default_rng(seed)``. The resident route's LQ draw is the JAX
+package's exact draw; its KMeans draw follows from the same ``rng`` where
+the JAX package draws with ``jax.random`` (README divergence T1). The
+one-shot route draws on the device from ``torch.Generator``s seeded from
+``(seed, stream)`` where the JAX package draws with ``jax.random`` from
+its key folded the same way (README T6).
 
 * **Sharded** (``_quantize_sharded``, the JAX package's): with
   ``mesh=`` (``parallel/mesh.py``), when the pixels (and, for a dither,
@@ -53,6 +66,7 @@ as in the JAX package.
 from __future__ import annotations
 
 import gc
+import os
 import time
 import traceback
 
@@ -87,6 +101,12 @@ LAST_STAGE_TIMES: dict[str, float] = {}
 # permutation).
 BYTES_PER_PIXEL = 29
 BYTES_PER_PIXEL_SALIENCY_OR_DITHER = 103
+# The same for the one-shot route, measured over its 2048x2048 calls
+# (chip_smoke.py's e2e-one-shot phases, the same card): 33.2 undithered
+# and 107.7 with saliency and dither (the palette core's draws and tables
+# beside the resident route's planes).
+ONE_SHOT_BYTES_PER_PIXEL = 34
+ONE_SHOT_BYTES_PER_PIXEL_SALIENCY_OR_DITHER = 108
 DEVICE_BUDGET_FRACTION = 0.8
 
 # The JAX package's thresholds of the sampled route (pipeline.py:210-217).
@@ -101,12 +121,13 @@ SAMPLE_MAX = 1 << 22
 # map, not only another speed.
 STREAM_STRIP_MIN = 1 << 22
 STREAM_STRIP_MAX = 1 << 24
+# Images of at most this many pixels take the one-shot route: the JAX
+# package's ONE_SHOT_MAX_PIXELS (pipeline.py:778).
+ONE_SHOT_MAX_PIXELS = 1 << 22
 # Dithered calls without saliency above this many pixels stream per strip
-# whatever the budget: the JAX package's ONE_SHOT_MAX_PIXELS
-# (pipeline.py:778), where its one-shot route ends and its strip dither
-# begins. The port has no one-shot route; the value keeps the JAX
-# package's maps.
-STRIP_DITHER_MIN_PIXELS = 1 << 22
+# whatever the budget: where the one-shot route ends, as in the JAX
+# package (pipeline.py:1042-1059); the value keeps the JAX package's maps.
+STRIP_DITHER_MIN_PIXELS = ONE_SHOT_MAX_PIXELS
 
 
 def _stream_strip_pixels(n: int) -> int:
@@ -211,14 +232,18 @@ def _gather(channels, idx):
     return torch.stack([ch[idx] for ch in channels], dim=-1).contiguous()
 
 
-def _finish_palette(palette_work, valid, p, csp):
-    """Working-space palette -> sRGB f64 with [-1,-1,-1] fill
-    (patolette.c:328)."""
-    pal_srgb = cs.working_to_srgb(palette_work, csp).cpu().numpy()
-    valid_np = valid.cpu().numpy()
+def _fill_palette(pal_srgb, valid, p):
+    """(p, 3) sRGB f64 with [-1,-1,-1] rows where ``valid`` is False
+    (patolette.c:328); numpy in, numpy out."""
     palette = np.full((p, 3), -1.0)
-    palette[valid_np] = pal_srgb[valid_np].astype(np.float64)
+    palette[valid] = pal_srgb[valid].astype(np.float64)
     return palette
+
+
+def _finish_palette(palette_work, valid, p, csp):
+    """Working-space palette -> sRGB f64 with [-1,-1,-1] fill."""
+    return _fill_palette(cs.working_to_srgb(palette_work, csp).cpu().numpy(),
+                         valid.cpu().numpy(), p)
 
 
 def _put(colors, device):
@@ -385,8 +410,14 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
     if dither and not saliency and n > STRIP_DITHER_MIN_PIXELS \
             and lq_max_samples:
         return _quantize_streamed(colors, p, **geometry, **kw)
-    per_pixel = (BYTES_PER_PIXEL_SALIENCY_OR_DITHER if saliency or dither
-                 else BYTES_PER_PIXEL)
+    one_shot = n <= ONE_SHOT_MAX_PIXELS and not os.environ.get(
+        "PATOLETTE_NO_ONE_SHOT")
+    if one_shot:
+        per_pixel = (ONE_SHOT_BYTES_PER_PIXEL_SALIENCY_OR_DITHER
+                     if saliency or dither else ONE_SHOT_BYTES_PER_PIXEL)
+    else:
+        per_pixel = (BYTES_PER_PIXEL_SALIENCY_OR_DITHER
+                     if saliency or dither else BYTES_PER_PIXEL)
     if n * per_pixel > _device_budget(device):
         if saliency:
             raise RuntimeError(
@@ -400,12 +431,13 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
             )
         return _quantize_streamed(colors, p, **geometry, **kw)
 
-    # --- the resident route, with the JAX package's net for a device OOM
-    # (pipeline.py:1119-1161): the footprint above is a measurement of
-    # other calls, not of this one, so a call that still runs out of
-    # device memory retries streamed where a streamed equivalent exists ---
+    # --- the one-shot route (pipeline.py:1105-1117), else the resident
+    # route, with the JAX package's net for a device OOM (pipeline.py:
+    # 1119-1161): the footprint above is a measurement of other calls, not
+    # of this one, so a call that still runs out of device memory retries
+    # streamed where a streamed equivalent exists ---
     try:
-        return _quantize_resident(
+        return (_quantize_one_shot if one_shot else _quantize_resident)(
             colors, p, **geometry,
             tile_size=float(tile_size) if saliency else 0.0, **kw)
     except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
@@ -419,8 +451,9 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    _log(verbose, "Device out of memory on the resident route; retrying "
-                  "streamed")
+    _log(verbose, "Device out of memory on the "
+                  f"{'one-shot' if one_shot else 'resident'} route; "
+                  "retrying streamed")
     return _quantize_streamed(colors, p, **geometry, **kw)
 
 
@@ -599,30 +632,35 @@ def _quantize_streamed(colors, p, *, width, height, dither, dither_segment,
     )
 
 
+def _working_image(colors, weights, width, height, tile_size, csp, device,
+                   verbose, timer):
+    """Upload, weights (explicit > MBD saliency when ``tile_size > 0`` >
+    none) and the working-space planes on the device: the front of the
+    resident and one-shot routes. Returns ``(planes, weights or None)``;
+    saliency gives None when a side is <= 3."""
+    x = _put(colors, device)
+    w = None
+    if weights is not None:
+        w = _put_weights(np.asarray(weights).reshape(-1), device)
+    timer.lap("stage-in")
+    if tile_size <= 0:
+        return color_convert(x, csp, "working"), w
+    _log(verbose, "Generating saliency map")
+    xp_srgb = color_convert(x, 0, "working")
+    del x
+    w = SAL.get_weights_planar(xp_srgb, height, width, tile_size)
+    timer.lap("saliency")
+    return tuple(cs.srgb_to_working(xp_srgb, csp)), w
+
+
 def _quantize_resident(colors, p, *, width, height, palette_only, dither,
                        dither_segment, tile_size, csp, kmeans_niter,
                        kmeans_max_samples, verbose, weights, lq_max_samples,
                        lq_batch_splits, seed, device, timer):
     """The resident route: planar image on the device end to end."""
     n = width * height
-    x = _put(colors, device)
-    # weights: explicit > saliency (tile_size > 0 only without them) > none
-    w_full = None
-    if weights is not None:
-        w_full = _put_weights(np.asarray(weights).reshape(-1), device)
-    timer.lap("stage-in")
-
-    if tile_size > 0:
-        _log(verbose, "Generating saliency map")
-        xp_srgb = color_convert(x, 0, "working")
-        del x
-        w_full = SAL.get_weights_planar(xp_srgb, height, width, tile_size)
-        timer.lap("saliency")
-        xp_work = cs.srgb_to_working(xp_srgb, csp)
-        del xp_srgb
-    else:
-        xp_work = color_convert(x, csp, "working")
-        del x
+    xp_work, w_full = _working_image(colors, weights, width, height,
+                                     tile_size, csp, device, verbose, timer)
     _log(verbose, "Palette generation")
 
     rng = np.random.default_rng(seed)
@@ -674,6 +712,154 @@ def _quantize_resident(colors, p, *, width, height, palette_only, dither,
 
     palette = _finish_palette(centers, valid, p, csp)
     timer.lap("palette-out")
+    return True, palette, palette_map, errors.exit_code_message(
+        errors.ExitCode.SUCCESS
+    )
+
+
+def _subsample_device(x, weights, cap: int, generator):
+    """With-replacement draw of ``cap`` pixels on the device (JAX
+    ``pipeline.py:1282-1301``). ``x``: interleaved (N, 3) or a planar
+    3-tuple of (N,); returns an interleaved (min(N, cap), 3) sample and its
+    weights. ``cap`` 0 or N <= cap: all of ``x``."""
+    if not isinstance(x, (tuple, list)):
+        return KM.subsample(x, weights, cap, generator)
+    idx = KM.draw_indices(x[0].shape[0], cap, generator, x[0].device)
+    if idx is None:
+        return torch.stack(tuple(x), dim=-1).contiguous(), weights
+    return _gather(x, idx), None if weights is None else weights[idx]
+
+
+def _palette_core(x, weights, palette_size, kmeans_niter, kmeans_max_samples,
+                  seed, mesh, lq_batch_splits, lq_max_samples, x_km=None,
+                  w_km=None):
+    """GQ (K11) -> LQ -> KMeans on working-space colours with no host read
+    (JAX ``pipeline.py:1353-1397``). ``x``: interleaved (N, 3) or a planar
+    3-tuple. The LQ sample and the KMeans sample are drawn on the device
+    from generators seeded from ``(seed, 0)`` and ``(seed, 1)``, with
+    ``mesh`` from ``(seed, rank, 0)`` and ``(seed, rank, 1)``, each rank
+    drawing its share of the caps from its own pixels; ``x_km``/``w_km``
+    replace the KMeans draw. Returns ``(centers, valid)`` on the device."""
+    dev = (x[0] if isinstance(x, (tuple, list)) else x).device
+    p = int(palette_size)
+    key = (int(seed),) if mesh is None else (int(seed), mesh.rank)
+    x_lq, w_lq = _subsample_device(
+        x, weights, PM.per_rank_cap(lq_max_samples, mesh),
+        KM.device_generator(dev, *key, 0))
+    buckets, bm = _gq_bucket_stage(x_lq, mesh)
+    cuts, k0 = GQ.gq_device(bm, p)
+    _, _, centers, valid = _lq_stage(x_lq, w_lq, buckets, cuts, k0, p,
+                                     max(1, int(lq_batch_splits)), mesh)
+    if kmeans_niter > 0:
+        if x_km is None:
+            cap = PM.per_rank_cap(
+                KM.subsample_cap(p, int(kmeans_max_samples)), mesh)
+            x_km, w_km = _subsample_device(
+                x, weights, cap, KM.device_generator(dev, *key, 1))
+        centers = KM.lloyd_iterations(x_km, w_km, centers, valid,
+                                      int(kmeans_niter), mesh=mesh)
+    return centers, valid
+
+
+def _on_device(a, device):
+    """A numpy array or tensor on ``device``; floats as f32, uint8 kept."""
+    t = torch.as_tensor(a)
+    dtype = torch.uint8 if t.dtype == torch.uint8 else torch.float32
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+def palette_pipeline_device(colors, weights, palette_size: int,
+                            color_space: int = 2, kmeans_niter: int = 0,
+                            kmeans_max_samples: int = 512**2,
+                            seed: int = 1234, mesh=None,
+                            lq_batch_splits: int = 8,
+                            lq_max_samples: int = 0, with_map: bool = True,
+                            device=None):
+    """Palette generation with no host read, the JAX package's
+    ``palette_pipeline_device`` (``pipeline.py:1304-1350``).
+
+    ``colors``: interleaved (N, 3) or a planar 3-tuple of (N,), sRGB f32 in
+    [0, 1] or raw uint8 (numpy arrays or tensors); ``weights``: (N,) or
+    None. The work runs on ``device`` (``cuda`` by default), with ``mesh``
+    on the mesh's device: then ``colors`` are this rank's pixels, every
+    pixel sum is summed over the ranks, the DP and the greedy control run
+    on every rank on the reduced sums, and each rank draws its share of
+    the sample caps from ``(seed, rank)`` (``mesh=`` takes the place of the
+    JAX package's ``axis_name``). ``lq_max_samples`` > 0 caps the GQ/LQ
+    search; KMeans keeps its own cap ``max(kmeans_max_samples, 256^2)``.
+
+    Returns ``(palette_working (P, 3), valid (P,), palette_map (N,))`` on
+    the device, the map for these pixels; ``with_map=False`` returns
+    ``(palette_working, valid)``.
+    """
+    dev = mesh.device if mesh is not None else _resolve_device(device)
+    csp = int(color_space)
+    if isinstance(colors, (tuple, list)):
+        x = tuple(_on_device(ch, dev) for ch in colors)
+        if x[0].dtype == torch.uint8:
+            x = tuple(ch.to(torch.float32) * cs._f32(1.0 / 255.0)
+                      for ch in x)
+        x = tuple(cs.srgb_to_working(x, csp))
+        planar = x
+    else:
+        x = cs.srgb_to_working(_on_device(colors, dev), csp)
+        planar = (x[:, 0], x[:, 1], x[:, 2])
+    w = None if weights is None else _on_device(weights, dev).reshape(-1)
+
+    centers, valid = _palette_core(
+        x, w, palette_size, kmeans_niter, kmeans_max_samples, seed, mesh,
+        lq_batch_splits, lq_max_samples)
+    if not with_map:
+        return centers, valid
+    pmap = assign_planar(cs.working_to_ictcp(planar, csp),
+                         cs.working_to_ictcp(centers, csp), valid)
+    return centers, valid, pmap
+
+
+def _quantize_one_shot(colors, p, *, width, height, palette_only, dither,
+                       dither_segment, tile_size, csp, kmeans_niter,
+                       kmeans_max_samples, verbose, weights, lq_max_samples,
+                       lq_batch_splits, seed, device, timer):
+    """The one-shot route (the JAX package's ``_one_shot_program`` and its
+    unpacking, ``pipeline.py:786-887``): upload, saliency when
+    ``tile_size > 0``, K10 to the working space,
+    the palette core, the dither or the direct map, the sRGB palette; no
+    host read until the palette and the map come back together at the
+    end. Laps: ``stage-in``, ``saliency``, ``palette``, ``dither`` or
+    ``nn-map`` (the host's enqueue unless synced), then ``one-shot``
+    (the wait for the device and the read back)."""
+    _log(verbose, "One-shot device pipeline")
+    xp_work, w = _working_image(colors, weights, width, height, tile_size,
+                                csp, device, verbose, timer)
+    _log(verbose, "Palette generation")
+    centers, valid = _palette_core(
+        xp_work, w, p, kmeans_niter, kmeans_max_samples, seed, None,
+        lq_batch_splits, lq_max_samples)
+    timer.lap("palette")
+
+    pmap = None
+    if dither:
+        _log(verbose, "Dithering")
+        pmap = DITH.riemersma_dither_planar(
+            xp_work, centers, valid, width, height, csp,
+            segment=dither_segment)
+        timer.lap("dither")
+    elif not palette_only:
+        _log(verbose, "NN mapping")
+        pmap = assign_planar(cs.working_to_ictcp(xp_work, csp),
+                             cs.working_to_ictcp(centers, csp), valid)
+        timer.lap("nn-map")
+    del xp_work, w
+
+    # the one wait: every result copied back, then the stream synced
+    outs = [t.to("cpu", non_blocking=True) for t in
+            (cs.working_to_srgb(centers, csp), valid)
+            + (() if pmap is None else (pmap,))]
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    palette = _fill_palette(outs[0].numpy(), outs[1].numpy(), p)
+    palette_map = None if pmap is None else outs[2].numpy()
+    timer.lap("one-shot")
     return True, palette, palette_map, errors.exit_code_message(
         errors.ExitCode.SUCCESS
     )

@@ -100,7 +100,10 @@ def principal_axis(a):
                    v[..., 2] * v[..., 2])[..., None]
 
     diag = torch.stack([a[..., 0, 0], a[..., 1, 1], a[..., 2, 2]], dim=-1)
-    fallback = eye[torch.argmax(diag, dim=-1)]
+    # rows picked by a 1-D index: a 0-d index tensor would be read on the
+    # host (one matrix, the GQ global axis)
+    fallback = eye[torch.argmax(diag, dim=-1).reshape(-1)].reshape(
+        diag.shape)
 
     ok = vnorm2[..., 0] > _EPS
     axis = torch.where(

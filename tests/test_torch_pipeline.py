@@ -298,8 +298,16 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_stage_times_recorded():
+def test_stage_times_recorded(monkeypatch):
+    """The one-shot route's laps by default, the resident route's stages
+    under PATOLETTE_NO_ONE_SHOT."""
     colors, _, _ = _posterized_image()
+    ok, *_ = _port(64, 64, colors, 8, dither=False, tile_size=0,
+                   kmeans_niter=2)
+    assert ok
+    assert {"stage-in", "palette", "nn-map", "one-shot"} <= set(
+        TP.LAST_STAGE_TIMES)
+    monkeypatch.setenv("PATOLETTE_NO_ONE_SHOT", "1")
     ok, *_ = _port(64, 64, colors, 8, dither=False, tile_size=0,
                    kmeans_niter=2)
     assert ok

@@ -181,6 +181,9 @@ def test_over_budget_fails_typed(streamed, kw, needle):
 
 
 def _resident_fails(monkeypatch, exc):
+    """The resident route raises ``exc``; a 96x64 image reaches it only
+    with the one-shot route off."""
+    monkeypatch.setenv("PATOLETTE_NO_ONE_SHOT", "1")
     calls = []
 
     def fail(*args, **kw):
