@@ -42,9 +42,13 @@ Phases, each printing one JSON line:
      reduction between its two halves must match its plain version as
      without one; K11 (the GQ DP) must equal its plain version in prefix,
      level costs, cut rows and chains, and give gq_device the same cuts
-     and k, on the 4K and 2048x2048 images' bucket moments, random
-     moments, empty buckets, all mass in one bucket, p = 1, 2 and 12, NaN
-     and +-inf buckets (kernel-k11-cases). K1 is timed at GQ's 512x11, the palette's 256x4 and the
+     and k, on the 4K image's bucket moments (p = 1, 2, 12), the
+     2048x2048 image's at every p of 1 .. 12, random moments, empty
+     buckets, all mass in one bucket, NaN and +-inf buckets, and the
+     adversarial moments of kernels.gq.adversarial_moments at b = 1, 2,
+     33, 512 and 1023, and at b <= 512 at each cluster size of its sweep
+     (kernel-k11-cases; kernel-k11-sweep: each cluster size's event
+     time). K1 is timed at GQ's 512x11, the palette's 256x4 and the
      LQ loop's 16x11 and 12x4 (id S: no candidate), K4 at P = 256 and
      P_LARGE, K2 at the random case and on the inputs of the LQ loop's own
      call at its median member share (logged from one 4K e2e call) (their
@@ -133,8 +137,9 @@ Phases, each printing one JSON line:
      kernels phase's shapes (K9 also at a mesh-4 rank's strip), each launch's
      device time (torch.profiler) and the enqueue rate, index_add_ beside
      K1 and, on
-     K2's keys and precomputed features, beside K2; last, because a traced
-     process pays CUPTI's cost on every later launch.
+     K2's keys and precomputed features, beside K2, and K11 at each
+     cluster size of its sweep; last, because a traced process pays
+     CUPTI's cost on every later launch.
 With ``--routes`` (a measurement, not a check) it then times the sampled
 LUT route against the resident route (direct map) at 4, 8.3 and 33 MP
 uint8, and the host map against plain torch CPU ops and a gather on the
@@ -1768,23 +1773,6 @@ def k11_chain_cycles(k_max, b=512):
     return LAT_F32 * (lg + 7 + (k_max - 1) * (1 + 2 * lg))
 
 
-def _k11_random_moments(seed, b=512):
-    """Bucket moments (b, 11) f32 of random anisotropic points in random
-    buckets (tests/test_torch_one_shot.py's)."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    n = int(rng.integers(1000, 5000))
-    x = rng.normal(size=(n, 3)) * rng.uniform(0.1, 2, 3)
-    x -= x.mean(0)
-    f = np.concatenate([np.ones((n, 1)), x, (x * x).sum(1)[:, None],
-                        x[:, 0:1] * x[:, 0:3], x[:, 1:2] * x[:, 1:3],
-                        x[:, 2:3] * x[:, 2:3]], 1)
-    bm = np.zeros((b, 11))
-    np.add.at(bm, rng.integers(0, b, n), f)
-    return bm.astype(np.float32)
-
-
 def image_bucket_moments(torch, w, h):
     """The one-shot route's GQ bucket moments of the w x h synthetic image
     (ICtCp, its 2^18-pixel LQ draw), on the card."""
@@ -1804,12 +1792,24 @@ def _same_bits(torch, a, b):
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
+# K11's checks: the bucket counts of the adversarial cases
+# (kernels.gq.adversarial_moments), and the largest at which every
+# cluster size of the sweep fits its shared memory
+K11_BUCKETS = (1, 2, 33, 512, 1023)
+K11_SWEEP_MAX_B = 512
+
+
 def kernel_k11(torch, rows):
     """K11 (the GQ DP) against its plain version on the card: prefix,
     level costs, cut rows and chains identical, and gq_device's cuts and k
-    through either, on the bucket moments of the 4K and the 2048x2048
-    images, random moments, empty buckets, all mass in one bucket, p = 1,
-    2 and 12, a NaN bucket (in w2 and in w0), +inf and -inf."""
+    through either, on the bucket moments of the 4K image (k_max 1, 2, 12)
+    and the 2048x2048 image (every k_max 1 .. 12), random moments with
+    empty buckets, all mass in one bucket, k_max 1, 2 and 12, a NaN bucket
+    (in w2 and in w0), +inf and -inf, and the adversarial moments of
+    kernels.gq.adversarial_moments at every b of K11_BUCKETS; at b <=
+    K11_SWEEP_MAX_B every cluster size of the sweep gives the same bits
+    (kernel-k11-cases). Then the sweep: each cluster size timed
+    (kernel-k11-sweep; their device times come in the split phase)."""
     import numpy as np
 
     from patolette_tpu_torch.kernels import gq as KGQ
@@ -1817,9 +1817,10 @@ def kernel_k11(torch, rows):
 
     bm4k = image_bucket_moments(torch, W, H)
     bm2k = image_bucket_moments(torch, ONE_SHOT_W, ONE_SHOT_H)
-    rnd = _k11_random_moments(1)
-    cases = {"4k": (bm4k, 12), "2048": (bm2k, 12),
-             "4k_p1": (bm4k, 1), "4k_p2": (bm4k, 2)}
+    rnd = KGQ.random_moments(512, 1)
+    cases = {"4k": (bm4k, 12), "4k_p1": (bm4k, 1), "4k_p2": (bm4k, 2)}
+    for k_max in range(1, 13):
+        cases[f"2048_p{k_max}"] = (bm2k, k_max)
     for name, mutate in (
             ("random", None), ("empty", "empty"),
             ("one_bucket", "one_bucket"), ("nan_w2", (200, 4, np.nan)),
@@ -1838,8 +1839,12 @@ def kernel_k11(torch, rows):
         for k_max in (1, 2):
             if name in ("random", "nan_w2"):
                 cases[f"{name}_p{k_max}"] = (cases[name][0], k_max)
+    for b in K11_BUCKETS:
+        for name, bm in KGQ.adversarial_moments(b).items():
+            cases[f"{name}_b{b}"] = (torch.from_numpy(bm).to(DEV), 12)
 
-    out = {}
+    ks = {}
+    swept = 0
     for name, (bm, k_max) in cases.items():
         got = KGQ.gq_dp(bm, k_max)
         want = KGQ.gq_dp_plain(bm, k_max)
@@ -1849,6 +1854,14 @@ def kernel_k11(torch, rows):
             check(g.shape == w.shape and g.dtype == w.dtype,
                   f"K11 {name}: {what} shape or type")
             check(_same_bits(torch, g, w), f"K11 {name}: {what} differs")
+        if bm.shape[0] <= K11_SWEEP_MAX_B:
+            for c in KGQ.CLUSTERS:
+                other = KGQ.gq_dp_cluster(bm, k_max, c)
+                for what, g, w in zip(("prefix", "cost", "cut", "chains"),
+                                      other, want):
+                    check(_same_bits(torch, g, w),
+                          f"K11 {name} at C = {c}: {what} differs")
+            swept += 1
         dev_cuts, dev_k = GQ.gq_device(bm, k_max)
         GQ.gq_dp = KGQ.gq_dp_plain
         try:
@@ -1857,8 +1870,14 @@ def kernel_k11(torch, rows):
             GQ.gq_dp = KGQ.gq_dp
         check(torch.equal(dev_cuts, plain_cuts)
               and int(dev_k) == int(plain_k), f"K11 {name}: cuts or k")
-        out[name] = [int(dev_k), dev_cuts[:int(dev_k) + 1].tolist()]
-    emit({"phase": "kernel-k11-cases", "cases": out})
+        ks[name] = int(dev_k)
+    emit({"phase": "kernel-k11-cases", "cases": len(cases),
+          "swept_cases": swept, "clusters": list(KGQ.CLUSTERS), "k": ks,
+          "cuts_2048": GQ.gq_device(bm2k, 12)[0].tolist()})
+    sweep = {c: time_ms(lambda: KGQ.gq_dp_cluster(bm2k, 12, c), reps=30)
+             for c in KGQ.CLUSTERS}
+    emit({"phase": "kernel-k11-sweep", "shape": [bm2k.shape[0], 12],
+          "event_ms": sweep})
 
     bm = bm2k
     ms = time_ms(lambda: KGQ.gq_dp(bm, 12), reps=30)
@@ -1879,7 +1898,7 @@ def kernel_k11(torch, rows):
     parts = {"bytes": t_bytes, "operations": t_ops, "chain": t_chain}
     binding = max(parts, key=parts.get)
     rows.append(dict(name="gq_dp", shape=[b, 12], max_abs_err=0.0, ms=ms,
-                     plain_ms=plain, library_ms=None,
+                     plain_ms=plain, library_ms=None, cluster_ms=sweep,
                      bound_ms=parts[binding],
                      # the chain is a bound of dependent operations
                      bound_by="bytes" if binding == "bytes"
@@ -2078,6 +2097,16 @@ def phase_split(torch):
               "ms": time_ms(lambda: gq_dp(bm, 12), reps=30),
               "enqueue_ms": enqueue_ms(lambda: gq_dp(bm, 12)),
               "split": launch_split(torch, lambda: gq_dp(bm, 12))})
+        # the cluster sweep, where the package has it
+        from patolette_tpu_torch.kernels import gq as KGQ
+
+        for c in getattr(KGQ, "CLUSTERS", ()):
+            emit({"phase": "split", "kernel": "gq_dp", "cluster": c,
+                  "shape": [512, 12],
+                  "ms": time_ms(lambda: KGQ.gq_dp_cluster(bm, 12, c),
+                                reps=30),
+                  "split": launch_split(
+                      torch, lambda: KGQ.gq_dp_cluster(bm, 12, c))})
 
 
 LAPS_ROUNDS = 8

@@ -63,7 +63,7 @@ SIGNATURES = {
     "pt_rle_encode_u8_v2": (_P, _I, _P, _P, _L, _P),
     "pt_rle_encode_u8": (_P, _I, _P, _P, _L, _P),
     "pt_rle_encode_u16_v2": (_P, _I, _P, _P, _L, _P),
-    "pt_gq_dp": (_P, _I, _I, _P, _P, _P, _P, _P),
+    "pt_gq_dp": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 HOST_SOURCE = "lut_map.cpp"

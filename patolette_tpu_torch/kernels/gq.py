@@ -1,13 +1,16 @@
 """K11: the GQ dynamic program and its backtrack.
 
-Kernel: ``csrc/gq_dp.cu``, one launch of one block: the prefix moments of
-the ``(b, 11)`` bucket moments, the levels ``E_k[n] = min_{k-1 <= t <= n-1}
-E_{k-1}[t] + D(t, n)`` for k = 2 .. ``k_max`` with D computed from the
-prefix (never stored as a ``(b+1, b+1)`` matrix), the cut rows and every
-level's chain. Twin: the JAX package's ``gq_device`` DP
-(``models/global_q.py:205-264``), written out here as
+Kernel: ``csrc/gq_dp.cu``, one launch of one thread block cluster: every
+block sums the prefix moments of the ``(b, 11)`` bucket moments, computes
+D(t, n) once for its own columns n (n = rank mod C) into shared memory,
+then the levels ``E_k[n] = min_{k-1 <= t <= n-1} E_{k-1}[t] + D(t, n)``
+for k = 2 .. ``k_max``, a warp a column, each level's values and cuts
+sent to the other blocks' shared memory and counted on their barriers;
+block 0 backtracks every level's chain. Twin: the JAX package's
+``gq_device`` DP (``models/global_q.py:205-264``), written out here as
 :func:`gq_dp_plain` in the kernel's order of operations, so the two agree
-bit for bit on the card.
+bit for bit on the card (the kernel's minimum follows one total order on
+(NaN, cost, t), so its reduction order does not matter).
 
 Returns ``(prefix (b+1, 11), cost (k_max, b+1), cut (k_max+1, b+1) int32,
 chains (k_max, 13) int32)``: ``cost[k-1]`` is ``E_k``; ``cut[k]`` is level
@@ -18,6 +21,7 @@ with ``b``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from patolette_tpu_torch import kernels
@@ -92,6 +96,60 @@ def gq_dp_plain(bucket_moments, k_max: int):
     return prefix, cost, cut, chains_from_cuts(cut, k_max, b)
 
 
+def random_moments(b: int, seed: int):
+    """(b, 11) f32 bucket moments of 1000-5000 random anisotropic points
+    in random buckets (numpy, from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1000, 5000))
+    x = rng.normal(size=(n, 3)) * rng.uniform(0.1, 2, 3)
+    x -= x.mean(0)
+    f = np.concatenate([np.ones((n, 1)), x, (x * x).sum(1)[:, None],
+                        x[:, 0:1] * x[:, 0:3], x[:, 1:2] * x[:, 1:3],
+                        x[:, 2:3] * x[:, 2:3]], 1)
+    bm = np.zeros((b, NUM_MOMENTS))
+    np.add.at(bm, rng.integers(0, b, n), f)
+    return bm.astype(np.float32)
+
+
+def adversarial_moments(b: int, seed: int = 0):
+    """K11's hard cases, for the tests and ``chip_smoke.py``: name -> (b,
+    11) f32 bucket moments. Random moments; the mass in 5 buckets (most
+    cells empty, so exact ties of E across the blocks' columns); that
+    with a NaN w2 in one of them; +inf in x then -inf further on (NaN at
+    several t of the columns between); NaN w0 (empty cells) in two
+    buckets; +inf and -inf in w2 and x of several buckets; all empty; all
+    the mass in one bucket."""
+    rng = np.random.default_rng(seed)
+    base = random_moments(b, seed)
+    out = {"random": base}
+    sparse = np.zeros_like(base)
+    at = np.sort(rng.choice(b, min(5, b), replace=False))
+    sparse[at] = random_moments(len(at), seed + 1)
+    sparse[at, 0] = np.maximum(sparse[at, 0], 1)
+    out["sparse5"] = sparse
+    bm = sparse.copy()
+    bm[at[len(at) // 2], 4] = np.nan
+    out["sparse5_nan"] = bm
+    bm = base.copy()
+    bm[b // 4, 1] = np.inf
+    bm[b // 2, 1] = -np.inf if b // 2 != b // 4 else np.nan
+    out["nan_window"] = bm
+    bm = base.copy()
+    bm[[b // 3, (2 * b) // 3], 0] = np.nan
+    out["nan_w0"] = bm
+    bm = base.copy()
+    bm[b // 5, 4] = np.inf
+    bm[(3 * b) // 5, 1] = np.inf
+    bm[(4 * b) // 5, 4] = -np.inf
+    bm[b - 1, 2] = -np.inf
+    out["inf"] = bm
+    out["empty"] = np.zeros_like(base)
+    bm = np.zeros_like(base)
+    bm[b // 2] = base.astype(np.float64).sum(0)
+    out["one_bucket"] = bm
+    return out
+
+
 def gq_dp(bucket_moments, k_max: int):
     """The DP of ``(b, 11)`` bucket moments up to ``k_max`` cells; the
     kernel on the card (f32), the twin on the CPU."""
@@ -100,6 +158,25 @@ def gq_dp(bucket_moments, k_max: int):
         raise ValueError(f"gq_dp: k_max {k_max} outside [1, {MAX_K}]")
     if bm.device.type == "cpu":
         return gq_dp_plain(bm, k_max)
+    out = _launch(bm, k_max, 0)
+    kernels.LAUNCHES["gq_dp"] += 1
+    return out
+
+
+# Cluster sizes the kernel is built for (csrc/gq_dp.cu picks its own).
+CLUSTERS = (4, 8, 16)
+
+
+def gq_dp_cluster(bucket_moments, k_max: int, cluster: int):
+    """One launch on the card with a cluster of ``cluster`` blocks (one of
+    :data:`CLUSTERS`): a measurement for chip_smoke.py's sweep, on no path
+    and not counted in ``LAUNCHES``."""
+    if cluster not in CLUSTERS:
+        raise ValueError(f"gq_dp_cluster: cluster {cluster}")
+    return _launch(bucket_moments, k_max, cluster)
+
+
+def _launch(bm, k_max, cluster):
     b = bm.shape[0]
     if bm.dtype != torch.float32:
         raise TypeError("gq_dp: f32 bucket moments")
@@ -113,9 +190,8 @@ def gq_dp(bucket_moments, k_max: int):
     cut = torch.empty((k_max + 1, b + 1), dtype=torch.int32, device=dev)
     chains = torch.empty((k_max, MAX_K + 1), dtype=torch.int32, device=dev)
     err = build.library().pt_gq_dp(
-        build.ptr(bm), b, k_max, build.ptr(prefix), build.ptr(cost),
-        build.ptr(cut), build.ptr(chains), build.stream(),
+        build.ptr(bm), b, k_max, int(cluster), build.ptr(prefix),
+        build.ptr(cost), build.ptr(cut), build.ptr(chains), build.stream(),
     )
     build.check(err, "gq_dp")
-    kernels.LAUNCHES["gq_dp"] += 1
     return prefix, cost, cut, chains

@@ -163,10 +163,11 @@ def visit_order_model(width: int, height: int):
     return perm.astype(np.int32)
 
 
-def visit_order(width: int, height: int, device="cpu"):
+def visit_order(width: int, height: int, device="cuda"):
     """(width*height,) int32 visit order: ``perm[i]`` is the row-major
-    index of the i-th pixel in ascending curve distance. On the CPU the
-    plain version; on the card one launch of the kernel, no sort."""
+    index of the i-th pixel in ascending curve distance. On the card (the
+    default) one launch of the kernel, no sort; with ``device="cpu"`` the
+    plain version."""
     device = torch.device(device)
     width, height = int(width), int(height)
     if device.type == "cpu":
@@ -176,6 +177,10 @@ def visit_order(width: int, height: int, device="cpu"):
         raise ValueError(f"visit_order: {width}x{height}")
     if device.type != "cuda":
         raise ValueError(f"visit_order: {device} is not a CUDA device")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "visit_order: CUDA device not available; pass device='cpu' to "
+            "run the plain version")
     out = torch.empty((width * height,), dtype=torch.int32, device=device)
     side = 1 << min(TILE_BITS, curve_order(width, height))
     tiles = -(-width // side) * -(-height // side)

@@ -15,7 +15,7 @@ from patolette_tpu_torch.kernels.hilbert import curve_order, visit_order
 __all__ = ["curve_order", "pixel_visit_order"]
 
 
-def pixel_visit_order(width: int, height: int, device="cpu"):
+def pixel_visit_order(width: int, height: int, device="cuda"):
     """(width*height,) int32: ``perm[i]`` is the row-major index of the
-    i-th pixel visited."""
+    i-th pixel visited. On the card unless ``device`` is the CPU."""
     return visit_order(width, height, device)

@@ -59,7 +59,7 @@ def test_xy_to_d_bits(order):
 @pytest.mark.parametrize("wh", [(13, 7), (64, 64), (40000, 2)])
 def test_pixel_visit_order_matches(wh):
     w, h = wh
-    perm = TH.pixel_visit_order(w, h)
+    perm = TH.pixel_visit_order(w, h, device="cpu")
     assert perm.dtype == torch.int32
     np.testing.assert_array_equal(perm.numpy(),
                                   np.asarray(JH.pixel_visit_order(w, h)))
@@ -122,8 +122,8 @@ def test_grey_mixes_black_and_white():
     img = torch.full((4096,), 0.4)
     table = palette_table(torch.tensor([[0.0] * 3, [1.0] * 3]),
                           torch.ones(2, dtype=torch.bool))
-    pmap = dither_scan((img, img, img), TH.pixel_visit_order(64, 64), table,
-                       0)
+    pmap = dither_scan((img, img, img),
+                       TH.pixel_visit_order(64, 64, "cpu"), table, 0)
     assert 0.25 < float(pmap.float().mean()) < 0.55
 
 

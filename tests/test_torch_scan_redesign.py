@@ -132,7 +132,8 @@ def test_dither_plain_equals_jax_scan(w, h, k, segment, kind):
         tuple(jnp.asarray(c) for c in ch), jnp.asarray(pal),
         jnp.asarray(valid), w, h, segment))
     got = dither_scan_plain(
-        tuple(torch.from_numpy(c) for c in ch), TH.pixel_visit_order(w, h),
+        tuple(torch.from_numpy(c) for c in ch),
+        TH.pixel_visit_order(w, h, "cpu"),
         palette_table(torch.from_numpy(pal), torch.from_numpy(valid)),
         segment).numpy()
     np.testing.assert_array_equal(got, want)
