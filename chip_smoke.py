@@ -99,6 +99,15 @@ Phases, each printing one JSON line:
      ONE_SHOT_MSE_RATIO of the resident route's (PATOLETTE_NO_ONE_SHOT)
      on the same call, the dither checks on the default call; the host
      syncs of a whole call are counted (sync debug mode "warn");
+  5c. api: the JAX package's last public functions at 3840x2160, one line
+     a check with its wall time: get_weights against get_weights_planar
+     and mbd against K9's wrapper, bit for bit (K9, K10 launched);
+     riemersma_dither on (N, 3) working rows against
+     riemersma_dither_planar, bit for bit (K10 for the image and the
+     palette, K7 and K8 once each); cieluv_to_srgb and ictcp_to_srgb of
+     K10's working image against the same glue on the CPU (1e-4) and back
+     to the input; pca_from_cov on 2^20 covariances (a degenerate one in
+     64) within 1e-6 of device="cpu";
   6. e2e-headline: bench.py's call through the port (10000x10000 uint8,
      256 colours, 25 KMeans iterations, ICtCp, no dither or saliency): one
      warm call, best of 3, the launch and repeat checks, CIELuv MSE on a
@@ -124,14 +133,22 @@ Phases, each printing one JSON line:
      K5 table for its palette, the map equal to the host map through it),
      the 4K float32 and default calls, the 100 MP uint8 image; each with
      the launch, rerun and lap checks and its CIELuv MSE within
-     MESH_MSE_RATIO of the single-device route's; then e2e-mesh-4: four
+     MESH_MSE_RATIO of the single-device route's; e2e-mesh-palette:
+     quantize_palette_distributed (palette_pipeline_device(mesh=): K11 on
+     the reduced moments) without draws equal to palette_pipeline_device
+     without a mesh, bit for bit, then its 32-iteration call with draws
+     and dither_distributed, timed, K11 launched; then e2e-mesh-4: four
      processes (this script with --mesh-worker) sharing cuda:0 over gloo,
      the 4K uint8 and default calls: every rank's palette, map and table
      identical, K6 launched on every rank, the table equal to the
      single-device K5 table, the uint8 MSE within MESH_MSE_RATIO of world
      1's, the default call's dither checks and its MSE within
      MESH4_DEFAULT_RATIO of world 1's at each seed of MESH4_SEEDS (the
-     call without saliency is reported beside them);
+     call without saliency is reported beside them), and one
+     quantize_palette_distributed + dither_distributed call a rank: the
+     palette the same bits on every rank, each rank's maps its rows of the
+     gathered whole, the MSE within MESH4_PALETTE_RATIO of world 1's
+     (MESH4_DEFAULT_RATIO dithered);
   9. golden: the 96x64 inputs against tests/golden/quantize_golden.npz;
  10. split: K1, K2, K4, K9, K3, K8, K7, K5, K6, K10 and K11 alone at the
      kernels phase's shapes (K9 also at a mesh-4 rank's strip), each launch's
@@ -3101,6 +3118,144 @@ def phase_e2e_one_shot(torch, profile=False):
     return launches["e2e-one-shot"], launches["e2e-one-shot-default"]
 
 
+API_PCA_N = 1 << 20
+API_PCA_ATOL = 1e-6
+# test_torch_colorspace.py's tolerance for sRGB-valued outputs
+API_SRGB_ATOL = 1e-4
+
+
+def pca_covariances(n, seed=0):
+    """``n`` symmetric 3x3 f32 covariances, a degenerate one in every 64
+    (zero, a multiple of the identity, a distinct diagonal, rank one, below
+    ``pca_from_cov``'s delta). The others have their top eigenvalue apart
+    (0.7-1 of the scale against 0.25-0.45 and 0-0.2) and its eigenvector
+    in the positive octant, so every column pca_from_cov may pick points
+    the same way: the card's libm and the CPU's may break a near-tie of
+    two column norms differently, which would flip an axis of mixed
+    signs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = np.abs(rng.standard_normal((n, 3)))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    v = q.copy()
+    v[:, 2] -= 1.0                          # Householder: e3 -> q
+    vv = np.maximum((v * v).sum(1), 1e-30)[:, None, None]
+    rot = np.eye(3) - 2.0 * v[:, :, None] * v[:, None, :] / vv
+    lam = np.stack([rng.uniform(0.0, 0.2, n), rng.uniform(0.25, 0.45, n),
+                    rng.uniform(0.7, 1.0, n)], -1)
+    lam *= 10.0 ** rng.uniform(-3, 3, (n, 1))
+    cov = np.einsum("nij,nj,nkj->nik", rot, lam, rot)
+    u = np.array([0.2, 0.5, 0.8])
+    degenerate = np.stack([np.zeros((3, 3)), 2.5 * np.eye(3),
+                           np.diag([0.1, 3.0, 0.7]), np.outer(u, u),
+                           1e-18 * np.eye(3)])
+    cov[::64] = degenerate[np.arange(len(cov[::64])) % len(degenerate)]
+    return cov.astype(np.float32)
+
+
+def phase_api(torch):
+    """The JAX package's last public functions on the card at the default
+    call's width (3840x2160), each against the port function it is built
+    on: get_weights against get_weights_planar of the same channels and
+    mbd against K9's wrapper (bit for bit, K9 and K10 launched);
+    riemersma_dither on (N, 3) working rows against riemersma_dither_planar
+    of the same planes (bit for bit; K10 for the image and for the palette,
+    K7 and K8 once each); cieluv_to_srgb and ictcp_to_srgb of K10's working
+    image against the same glue on the CPU, and back to the input; and
+    pca_from_cov on API_PCA_N covariances against device="cpu". One line
+    a check, with its wall time."""
+    import numpy as np
+
+    from patolette_tpu_torch import kernels
+    from patolette_tpu_torch.kernels import mbd as K9
+    from patolette_tpu_torch.kernels.colorspace import color_convert
+    from patolette_tpu_torch.models import dither, saliency
+    from patolette_tpu_torch.ops import colorspace as cs
+    from patolette_tpu_torch.ops import eigen3
+
+    w, h = W, H
+    img = synth_image_f32(w, h)
+    x = torch.from_numpy(img).to(DEV)
+    planes = tuple(x[:, k].contiguous() for k in range(3))
+
+    def timed(name, fn, **found):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        line = {"phase": "api-" + name, "shape": [w, h],
+                "wall_s": time.perf_counter() - t0,
+                "launches": {k: v for k, v in kernels.LAUNCHES.items() if v}}
+        for kname, count in found.items():
+            check(kernels.LAUNCHES[kname] == count,
+                  f"api {name}: {kname} launched "
+                  f"{kernels.LAUNCHES[kname]} times, not {count}")
+        return result, line
+
+    got, line = timed("get_weights", lambda: saliency.get_weights(
+        x.view(h, w, 3), 512.0), mbd=1)
+    check(kernels.LAUNCHES["color_convert"] > 0, "api get_weights: no K10")
+    want = saliency.get_weights_planar(planes, h, w, 512.0)
+    check(got.shape == (w * h,) and torch.equal(got, want),
+          "get_weights differs from get_weights_planar")
+    emit({**line, "equals_get_weights_planar": True})
+
+    grey = ((planes[0] + planes[1] + planes[2]) / 3.0).view(h, w)
+    got, line = timed("mbd", lambda: saliency.mbd(grey), mbd=1)
+    check(torch.equal(got, K9.mbd(grey)), "mbd differs from K9's wrapper")
+    emit({**line, "equals_k9": True})
+
+    xw = torch.stack(color_convert(x, 2, "working"), 1)
+    pal = xw[torch.randint(0, w * h, (256,), device=DEV,
+                           generator=torch.Generator(DEV).manual_seed(3))]
+    valid = torch.arange(256, device=DEV) != 7
+    got, line = timed("riemersma_dither", lambda: dither.riemersma_dither(
+        xw, pal, valid, w, h, 2), color_convert=2, visit_order=1,
+        dither_scan=1)
+    want = dither.riemersma_dither_planar(
+        tuple(xw[:, k].contiguous() for k in range(3)), pal, valid, w, h, 2)
+    check(torch.equal(got, want),
+          "riemersma_dither differs from riemersma_dither_planar")
+    check(not (got == 7).any(), "riemersma_dither chose an invalid entry")
+    emit({**line, "equals_riemersma_dither_planar": True})
+
+    sub = slice(0, None, 8)  # the CPU's share: every 8th pixel
+    for name, csp in (("cieluv_to_srgb", 1), ("ictcp_to_srgb", 2)):
+        work = color_convert(x, csp, "working")
+        got, line = timed(name, lambda: getattr(cs, name)(work))
+        cpu = getattr(cs, name)(tuple(c[sub].cpu() for c in work))
+        dev_err = max(float((g[sub].cpu() - c).abs().max())
+                      for g, c in zip(got, cpu))
+        back = max(float((g - x[:, k]).abs().max())
+                   for k, g in enumerate(got))
+        back_cpu = max(float((c - x[sub, k].cpu()).abs().max())
+                       for k, c in enumerate(cpu))
+        check(dev_err <= API_SRGB_ATOL, f"{name}: card against CPU {dev_err}")
+        # CIELuv comes back within the sRGB tolerance; ICtCp in f32 loses
+        # the darkest colours' last bits through the PQ curve (~2e-3 on the
+        # CPU too), so its way back is held to the CPU's own
+        check(back <= (API_SRGB_ATOL if csp == 1 else
+                       back_cpu + API_SRGB_ATOL),
+              f"{name}: back to the input within {back}")
+        emit({**line, "max_abs_err_to_cpu": dev_err,
+              "max_abs_err_to_input": back,
+              "max_abs_err_to_input_cpu_every_8th": back_cpu})
+
+    cov = pca_covariances(API_PCA_N)
+    cov_dev = torch.from_numpy(cov).to(DEV)
+    (axis, expl), line = timed("pca_from_cov",
+                               lambda: eigen3.pca_from_cov(cov_dev))
+    axis_c, expl_c = eigen3.pca_from_cov(cov, device="cpu")
+    err = max(float((axis.cpu() - axis_c).abs().max()),
+              float((expl.cpu() - expl_c).abs().max()))
+    check(np.isfinite(err) and err <= API_PCA_ATOL,
+          f"pca_from_cov: card against CPU {err}")
+    emit({**line, "n": API_PCA_N, "max_abs_err_to_cpu": err,
+          "atol": API_PCA_ATOL})
+
+
 def _dither_quality(torch, colors, pal, pmap, w, h, what):
     """The checks of a dithered map: its per-pixel CIELuv MSE under half
     the 216-colour cube's dithered the same way, and its 8x8 block means
@@ -3304,6 +3459,9 @@ MESH_MSE_RATIO = 1.02
 # was set from are in PERF.md.
 MESH4_DEFAULT_RATIO = 1.10
 MESH4_SEEDS = (1234, 1, 2)
+# quantize_palette_distributed on four ranks against one: each rank draws
+# its share of the samples from (seed, rank) (README T5's bound)
+MESH4_PALETTE_RATIO = 1.01
 
 
 def _free_port():
@@ -3474,6 +3632,10 @@ def phase_e2e_mesh(torch, img_100mp, mse_headline, profile=False):
             out["mse"][f"default_seed{seed}"] = _mse_luv(
                 torch, img, *run(img, seed=seed))[0]
 
+        (out["launches"]["mesh-palette"], out["mse"]["palette"],
+         out["mse"]["palette_dithered"]) = _mesh_palette_world1(
+             torch, mesh, img, p)
+
         # bench.py's 100 MP uint8 image, 25 iterations
         hw, hh = HEADLINE_W, HEADLINE_H
         run = mesh_run(dict(undithered, kmeans_niter=25), hw, hh)
@@ -3498,12 +3660,96 @@ def phase_e2e_mesh(torch, img_100mp, mse_headline, profile=False):
     return out
 
 
+MESH_PALETTE_KERNELS = ("gq_dp", "segment_sum", "lq_candidates",
+                        "kmeans_step", "color_convert", "assign_planar")
+# quantize_palette_distributed's call with draws, on one rank and on four
+MESH_PALETTE_KW = dict(kmeans_niter=32, lq_max_samples=N_SAMPLES,
+                       planar=True)
+
+
+def _palette_and_dither(torch, mesh, chans, w, h, p):
+    """quantize_palette_distributed (MESH_PALETTE_KW) then
+    dither_distributed of this rank's channels on its palette: the
+    palette and valid flags, this rank's maps, the call's launches."""
+    from patolette_tpu_torch import kernels
+    from patolette_tpu_torch.parallel import distributed as D
+
+    kernels.reset_launches()
+    centers, valid, pmap = D.quantize_palette_distributed(
+        mesh, p, **MESH_PALETTE_KW)(chans, None)
+    dmap = D.dither_distributed(mesh, w, h, 2, planar=True)(chans, centers,
+                                                           valid)
+    torch.cuda.synchronize()
+    return centers, valid, pmap, dmap, dict(kernels.LAUNCHES)
+
+
+def _mse_working(torch, img, centers, valid, pmap):
+    """CIELuv MSE of a working-space (ICtCp) palette's map."""
+    from patolette_tpu_torch.models import pipeline
+
+    pal = pipeline._finish_palette(centers, valid, len(valid), 2)
+    return _mse_luv(torch, img, pal, pmap.cpu().numpy())[0]
+
+
+def _mesh_palette_world1(torch, mesh, img, p):
+    """e2e-mesh-palette: quantize_palette_distributed, the first caller of
+    palette_pipeline_device(mesh=), with one rank. Without draws it must
+    equal palette_pipeline_device without a mesh, bit for bit (one rank's
+    exchange is exact); then the 32-iteration call with draws, timed, with
+    its launches (K11 on the mesh), and dither_distributed on its palette:
+    world 1's side of e2e-mesh-4."""
+    from patolette_tpu_torch import kernels
+    from patolette_tpu_torch.models import pipeline
+    from patolette_tpu_torch.parallel import distributed as D
+
+    w, h = W, H
+    chans = tuple(torch.from_numpy(img[:, k].copy()).to(DEV)
+                  for k in range(3))
+    no_draws = dict(kmeans_niter=0, lq_max_samples=0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = D.quantize_palette_distributed(mesh, p, planar=True, **no_draws)(
+        chans, None)
+    torch.cuda.synchronize()
+    no_draws_s = time.perf_counter() - t0
+    no_draws_launches = dict(kernels.LAUNCHES)
+    want = pipeline.palette_pipeline_device(chans, None, p, **no_draws)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "quantize_palette_distributed on one rank differs from "
+          "palette_pipeline_device")
+    walls, first = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = _palette_and_dither(torch, mesh, chans, w, h, p)
+        walls.append(time.perf_counter() - t0)
+        first = first or res
+        check(all(torch.equal(a, b) for a, b in zip(res[:4], first[:4])),
+              "two runs of quantize_palette_distributed differ")
+    centers, valid, pmap, dmap, launches = first
+    for name in MESH_PALETTE_KERNELS + ("visit_order", "dither_scan"):
+        check(launches[name] > 0, f"{name} not launched on the mesh palette")
+    mse = _mse_working(torch, img, centers, valid, pmap)
+    mse_d = _mse_working(torch, img, centers, valid, dmap)
+    emit({"phase": "e2e-mesh-palette", "shape": [w, h], "palette": p,
+          "world": 1, "backend": "nccl", **MESH_PALETTE_KW,
+          "equals_palette_pipeline_device_no_draws": True,
+          "no_draws_s": no_draws_s,
+          "no_draws_launches": {k: v for k, v in no_draws_launches.items()
+                                if v},
+          "palette_and_dither_wall_s": walls,
+          "launches": {k: v for k, v in launches.items() if v},
+          "palette_used": int(valid.sum()), "cieluv_mse": mse,
+          "cieluv_mse_dithered": mse_d, "bit_identical_runs": True})
+    return launches, mse, mse_d
+
+
 def mesh_worker(port, rank, world, out_dir):
     """One rank of e2e-mesh-4 (``chip_smoke.py --mesh-worker PORT RANK
     WORLD DIR``): gloo, every rank on cuda:0; the 4K uint8 undithered call
     and the 4K default call, each three times, then the default call at
-    the other seeds of MESH4_SEEDS and without saliency, once each;
-    results into DIR/rRANK.npz."""
+    the other seeds of MESH4_SEEDS and without saliency, once each, then
+    one quantize_palette_distributed + dither_distributed call on the
+    rank's rows; results into DIR/rRANK.npz."""
     import datetime
 
     import numpy as np
@@ -3515,6 +3761,7 @@ def mesh_worker(port, rank, world, out_dir):
     from patolette_tpu_torch import kernels
     from patolette_tpu_torch.models import pipeline
     from patolette_tpu_torch.parallel import distributed as D
+    from patolette_tpu_torch.parallel import mesh as PM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3558,6 +3805,24 @@ def mesh_worker(port, rank, world, out_dir):
         ok, pal, pmap, msg = pt.quantize(W, H, img, 256, mesh=mesh, **kw)
         check(ok, f"rank {rank} {tag}: {msg}")
         res[tag + "_pal"], res[tag + "_map"] = pal, pmap
+    # quantize_palette_distributed and dither_distributed on this rank's
+    # rows: the palette the same bits on every rank, the maps this rank's
+    # rows of the gathered whole
+    lo, hi = PM.shard_range(W * H, mesh)
+    chans = tuple(torch.from_numpy(img[lo:hi, k].copy()).to(mesh.device)
+                  for k in range(3))
+    t0 = time.perf_counter()
+    centers, valid, pmap, dmap, launches = _palette_and_dither(
+        torch, mesh, chans, W, H, 256)
+    meta["palette"] = {"wall_s": time.perf_counter() - t0,
+                       "launches": launches}
+    whole, dwhole = PM.gather(mesh, pmap), PM.gather(mesh, dmap)
+    check(torch.equal(whole[lo:hi], pmap) and torch.equal(dwhole[lo:hi],
+                                                          dmap),
+          f"rank {rank}: its maps are not its rows of the gathered whole")
+    res.update(qpd_centers=centers.cpu().numpy(),
+               qpd_valid=valid.cpu().numpy(), qpd_map=whole.cpu().numpy(),
+               qpd_dither_map=dwhole.cpu().numpy())
     meta["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     np.savez(pathlib.Path(out_dir) / f"r{rank}.npz", **res)
     (pathlib.Path(out_dir) / f"r{rank}.json").write_text(json.dumps(meta))
@@ -3630,6 +3895,14 @@ def phase_e2e_mesh4(torch, mse_world1):
                                 res[0][tag + "_map"])[0] / mse_world1[tag]
     no_sal = _mse_luv(torch, img, res[0]["no_saliency_pal"],
                       res[0]["no_saliency_map"])[0]
+    for r, m in enumerate(meta):
+        for name in MESH_PALETTE_KERNELS + ("visit_order", "dither_scan"):
+            check(m["palette"]["launches"][name] > 0,
+                  f"rank {r}: {name} not launched on the mesh palette")
+    q = [torch.from_numpy(res[0][k]) for k in ("qpd_centers", "qpd_valid")]
+    mse_q = _mse_working(torch, img, *q, torch.from_numpy(res[0]["qpd_map"]))
+    mse_qd = _mse_working(torch, img, *q,
+                          torch.from_numpy(res[0]["qpd_dither_map"]))
     emit({"phase": "e2e-mesh-4", "shape": [W, H], "palette": 256,
           "world": world, "backend": "gloo", "devices": "cuda:0 shared",
           "seconds": secs, "walls_s": {
@@ -3647,7 +3920,17 @@ def phase_e2e_mesh4(torch, mse_world1):
           "mse_ratio_to_world1_default_by_seed": ratios,
           "no_saliency_mse_ratio_to_world1_default":
               no_sal / mse_world1["default"],
-          "ranks_identical": True, "table_equals_single_device": True})
+          "ranks_identical": True, "table_equals_single_device": True,
+          "palette_wall_s": [m["palette"]["wall_s"] for m in meta],
+          "palette_launches_rank0": meta[0]["palette"]["launches"],
+          "palette_cieluv_mse": mse_q, "palette_cieluv_mse_dithered": mse_qd,
+          "palette_mse_ratio_to_world1": mse_q / mse_world1["palette"],
+          "palette_dithered_mse_ratio_to_world1":
+              mse_qd / mse_world1["palette_dithered"]})
+    check(mse_q <= MESH4_PALETTE_RATIO * mse_world1["palette"],
+          f"world-4 palette MSE {mse_q} against world 1's")
+    check(mse_qd <= MESH4_DEFAULT_RATIO * mse_world1["palette_dithered"],
+          f"world-4 palette dithered MSE {mse_qd} against world 1's")
     check(mse8 <= MESH_MSE_RATIO * mse_world1["u8"],
           f"world-4 uint8 MSE {mse8} against world 1's")
     for seed, ratio in ratios.items():
@@ -3772,6 +4055,7 @@ def main():
                 **pull_launches}
     launches["one-shot"], launches["one-shot-default"] = phase_e2e_one_shot(
         torch, profile=profile)
+    phase_api(torch)
     img_100mp, launches["u16-lut"], mse_headline = phase_e2e_headline(
         torch, peak_u8)
     launches["strip-dither"] = phase_e2e_strip_dither(torch, profile=profile)

@@ -15,6 +15,7 @@ import torch
 
 from patolette_tpu_torch import kernels
 from patolette_tpu_torch.kernels import build
+from patolette_tpu_torch.utils.device import call_device, on_device
 
 MAX_ORDER = 16
 # The kernel's tiles: aligned squares of side 2^TILE_BITS, each a run of
@@ -38,14 +39,19 @@ def curve_order(width: int, height: int) -> int:
     return max(level, 1)
 
 
-def xy_to_d(x, y, order: int):
+def xy_to_d(x, y, order: int, device=None):
     """Distance along the Hilbert curve of order ``order`` for integer
-    coordinate tensors (the classic rotation loop); uint32 arithmetic
-    emulated in int64, so ``d`` is exact through order 16."""
-    if not 1 <= order <= MAX_ORDER:
-        raise ValueError(f"xy_to_d: order {order} outside 1..{MAX_ORDER}")
-    x = x.to(torch.int64) & _U32
-    y = y.to(torch.int64) & _U32
+    coordinate arrays ``x``, ``y`` (the classic rotation loop, the JAX
+    package's ``xy_to_d``, hilbert.py:31). The JAX package's values, as
+    int64 where it returns uint32 (uint64 above order 16): its uint32
+    arithmetic is emulated in int64, exact through order 31. Numpy input
+    goes to ``device`` (``cuda`` by default); tensors stay where they
+    are."""
+    if not 1 <= order <= 31:
+        raise ValueError(f"xy_to_d: order {order} outside 1..31")
+    dev = call_device(x, device)
+    x = on_device(x, dev, torch.int64) & _U32
+    y = on_device(y, dev, torch.int64) & _U32
     d = torch.zeros_like(x)
     s = 1 << (order - 1)
     while s > 0:

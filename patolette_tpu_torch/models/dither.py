@@ -8,8 +8,9 @@ in luma-weighted space (channel scales sqrt of the Rec2020 Y
 coefficients). The curve is cut into lanes of ``segment`` pixels whose
 queues start at zero (``segment=0``: one serial chain).
 
-Two feeds, as in the JAX package: the planar one converts working-space
-channels to linear Rec2020; the packed uint8 one (the streamed route's
+Three feeds, as in the JAX package: the planar one and the interleaved
+one (:func:`riemersma_dither`, (N, 3) rows) convert working-space colours
+to linear Rec2020; the packed uint8 one (the streamed route's
 uint8 strips) converts the bytes directly from sRGB. Both conversions are
 K10 (``kernels/colorspace.py``); :func:`riemersma_dither_rec2020` takes
 channels already in linear Rec2020 (the streamed route's float strips,
@@ -21,10 +22,13 @@ writes each index to its pixel directly.
 
 from __future__ import annotations
 
+import torch
+
 from patolette_tpu_torch.kernels.colorspace import color_convert
 from patolette_tpu_torch.kernels.dither import dither_scan, palette_table
 from patolette_tpu_torch.ops import colorspace as cs
 from patolette_tpu_torch.ops import hilbert
+from patolette_tpu_torch.utils.device import call_device, on_device
 
 
 def riemersma_dither_rec2020(ch2020, palette_working, valid, width, height,
@@ -47,6 +51,24 @@ def riemersma_dither_planar(channels_working, palette_working, valid,
                                           color_space)
     return riemersma_dither_rec2020(ch2020, palette_working, valid, width,
                                     height, color_space, segment)
+
+
+def riemersma_dither(colors_working, palette_working, valid, width, height,
+                     color_space, segment=4096, device=None):
+    """Palette map (N,) int32 of the (N, 3) working-space image
+    ``colors_working`` against ``palette_working`` (K, 3) with ``valid``
+    (K,) bool (the JAX package's ``riemersma_dither``, dither.py:79). K10
+    reads the rows as they are (no planes made first), then K7 and K8 as
+    in :func:`riemersma_dither_planar`, whose bits it gives. Numpy input
+    goes to ``device`` (``cuda`` by default); tensors stay where they
+    are."""
+    dev = call_device(colors_working, device)
+    ch2020 = color_convert(on_device(colors_working, dev, torch.float32),
+                           color_space, "working_to_rec2020")
+    return riemersma_dither_rec2020(
+        ch2020, on_device(palette_working, dev),
+        on_device(valid, dev, torch.bool), width, height, color_space,
+        segment)
 
 
 def riemersma_dither_packed_u8(pixels_u8, palette_working, valid, width,

@@ -88,9 +88,27 @@ from patolette_tpu_torch.ops.assign import assign_planar
 from patolette_tpu_torch.parallel import mesh as PM
 from patolette_tpu_torch.utils import errors
 from patolette_tpu_torch.utils.config import ColorSpace, QuantizeOptions
+from patolette_tpu_torch.utils.device import (call_device, on_device,
+                                              resolve_device)
 
 # Per-stage wall times (ms) of the most recent quantize() call.
 LAST_STAGE_TIMES: dict[str, float] = {}
+
+# Laps that wait for the device, so each holds its own device time: on for
+# every call under PATOLETTE_SYNC_STAGES=1 or set_sync_stages(True), as in
+# the JAX package (pipeline.py:66-79); a call turns it on for itself with
+# sync_stages=True or verbose. It costs the overlap of host and device, so
+# timed runs leave it off.
+_SYNC_STAGES = os.environ.get("PATOLETTE_SYNC_STAGES", "0") == "1"
+
+
+def set_sync_stages(on: bool) -> bool:
+    """Turn synced stage laps on or off for every later call; returns the
+    previous setting."""
+    global _SYNC_STAGES
+    prev = _SYNC_STAGES
+    _SYNC_STAGES = bool(on)
+    return prev
 
 # Peak device bytes per pixel of one resident call, measured
 # (torch.cuda.max_memory_allocated over a 3840x2160 float32 call on an
@@ -168,18 +186,6 @@ class _StageTimer:
         if self.verbose:
             print(f"patolette ======== [{name}] {ms:.1f} ms", flush=True)
         self.t = now
-
-
-def _resolve_device(device):
-    if device is None:
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA device not available; pass device='cpu' to run the plain "
-            "versions of the kernels"
-        )
-    return device
 
 
 def _gq_bucket_stage(colors, mesh=None):
@@ -302,7 +308,7 @@ def quantize(
     device the call fails (typed) unless the caller passes ``"cpu"``, which
     runs the kernels' plain versions. ``sync_stages``: wait for the device
     at each stage lap, so ``LAST_STAGE_TIMES`` holds device time (also on
-    under ``verbose``).
+    under ``verbose`` and :func:`set_sync_stages`).
 
     ``mesh``: a :class:`patolette_tpu_torch.parallel.mesh.Mesh`. Every rank
     of its group calls ``quantize`` with the same arguments and the whole
@@ -375,9 +381,10 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
             _log(verbose, "mesh given but shapes not divisible; running "
                           "single-device")
             mesh = None
-    device = _resolve_device(device)
+    device = resolve_device(device)
     saliency = weights is None and tile_size > 0
-    timer = _StageTimer(verbose, verbose or sync_stages, device)
+    timer = _StageTimer(verbose, verbose or sync_stages or _SYNC_STAGES,
+                        device)
     csp = int(color_space)
     kw = dict(
         palette_only=palette_only, csp=csp, kmeans_niter=int(kmeans_niter),
@@ -761,13 +768,6 @@ def _palette_core(x, weights, palette_size, kmeans_niter, kmeans_max_samples,
     return centers, valid
 
 
-def _on_device(a, device):
-    """A numpy array or tensor on ``device``; floats as f32, uint8 kept."""
-    t = torch.as_tensor(a)
-    dtype = torch.uint8 if t.dtype == torch.uint8 else torch.float32
-    return t.to(device=device, dtype=dtype).contiguous()
-
-
 def palette_pipeline_device(colors, weights, palette_size: int,
                             color_space: int = 2, kmeans_niter: int = 0,
                             kmeans_max_samples: int = 512**2,
@@ -788,23 +788,24 @@ def palette_pipeline_device(colors, weights, palette_size: int,
     JAX package's ``axis_name``). ``lq_max_samples`` > 0 caps the GQ/LQ
     search; KMeans keeps its own cap ``max(kmeans_max_samples, 256^2)``.
 
-    Returns ``(palette_working (P, 3), valid (P,), palette_map (N,))`` on
-    the device, the map for these pixels; ``with_map=False`` returns
-    ``(palette_working, valid)``.
+    Numpy input goes to ``device`` (the mesh's with ``mesh``); tensors stay
+    where they are (``utils/device.py``). Returns ``(palette_working (P,
+    3), valid (P,), palette_map (N,))`` on that device, the map for these
+    pixels; ``with_map=False`` returns ``(palette_working, valid)``.
     """
-    dev = mesh.device if mesh is not None else _resolve_device(device)
+    dev = call_device(colors, mesh.device if mesh is not None else device)
     csp = int(color_space)
     if isinstance(colors, (tuple, list)):
-        x = tuple(_on_device(ch, dev) for ch in colors)
+        x = tuple(on_device(ch, dev) for ch in colors)
         if x[0].dtype == torch.uint8:
             x = tuple(ch.to(torch.float32) * cs._f32(1.0 / 255.0)
                       for ch in x)
         x = tuple(cs.srgb_to_working(x, csp))
         planar = x
     else:
-        x = cs.srgb_to_working(_on_device(colors, dev), csp)
+        x = cs.srgb_to_working(on_device(colors, dev), csp)
         planar = (x[:, 0], x[:, 1], x[:, 2])
-    w = None if weights is None else _on_device(weights, dev).reshape(-1)
+    w = None if weights is None else on_device(weights, dev).reshape(-1)
 
     centers, valid = _palette_core(
         x, w, palette_size, kmeans_niter, kmeans_max_samples, seed, mesh,
@@ -865,26 +866,6 @@ def _quantize_one_shot(colors, p, *, width, height, palette_only, dither,
     )
 
 
-def _strip_saliency(strip, width, rows, tile_size, total_pixels):
-    """Saliency weights of one rank's (rows * width, 3) strip on the
-    device, its borders the strip's own, scaled by the whole image's area
-    (the JAX package's ``saliency_sharded``, ``mesh.py:150-187``); None
-    when a side is <= 3."""
-    return SAL.get_weights_planar(color_convert(strip, 0, "working"), rows,
-                                  width, tile_size, total_pixels=total_pixels)
-
-
-def _strip_dither(strip, centers, valid, width, rows, csp, segment):
-    """Dithered map of one rank's strip along its own curve with a fresh
-    queue (the JAX package's ``dither_sharded``, ``mesh.py:190-243``). The
-    strip goes from sRGB straight to linear Rec2020 for float and uint8
-    input alike (``mesh.py:210-219``), unlike the streamed route's float
-    strips."""
-    return DITH.riemersma_dither_rec2020(
-        color_convert(strip, 0, "rec2020_direct"), centers, valid, width,
-        rows, csp, segment=segment)
-
-
 def _gather_rows(mesh, rows):
     """Every rank's (n_local, 3) rows in rank order, on every host (exact:
     uint8 travels as int32)."""
@@ -936,7 +917,8 @@ def _quantize_sharded(colors, p, mesh, *, width, height, dither,
     if saliency:
         if strip_h > 3:
             _log(verbose, "Generating saliency map (per-strip)")
-            w_dev = _strip_saliency(strip, width, strip_h, tile_size, n)
+            w_dev = PM.saliency_sharded(mesh, width, strip_h, tile_size,
+                                        n)(strip.unbind(1))
         elif height > 3 and width > 3:
             _log(verbose, "Generating saliency map (replicated)")
             full = _gather_rows(mesh, rows) if local else colors
@@ -1008,8 +990,9 @@ def _quantize_sharded(colors, p, mesh, *, width, height, dither,
         else:
             if dither:
                 _log(verbose, "Dithering (per-strip)")
-                pm = _strip_dither(strip, centers, valid, width, strip_h,
-                                   csp, dither_segment)
+                pm = PM.dither_sharded(mesh, width, height, csp,
+                                       dither_segment, planar=True)(
+                    strip.unbind(1), centers, valid)
             else:
                 _log(verbose, "NN mapping")
                 pm = assign_planar(color_convert(strip, csp, "ictcp"),

@@ -3,7 +3,7 @@
 Port of ``patolette_tpu/models/saliency.py`` (reference
 src/patolette/patolette.pyx:47-317):
 
-  1. MBD of the channel-mean image (K9, ``kernels/mbd.py``).
+  1. MBD of the channel-mean image (K9, ``kernels/mbd.py``; :func:`mbd`).
   2. Border prior: the Mahalanobis distance of every pixel's Lab colour to
      the mean of each of 4 border strips (thickness
      ``floor(0.1 * sqrt(rows * cols))``), each over its max, combined as
@@ -22,8 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from patolette_tpu_torch.kernels.mbd import mbd
+from patolette_tpu_torch.kernels import mbd as K9
 from patolette_tpu_torch.ops import colorspace as cs
+from patolette_tpu_torch.utils.device import call_device, on_device
 
 # jnp.linalg.pinv's default cutoff: 10 * max(m, n) * eps(f32)
 _PINV_RTOL = 10.0 * 3 * float(np.finfo(np.float32).eps)
@@ -69,6 +70,26 @@ def _border_prior(lab, border):
     return stacked.sum(0) - stacked.max(0).values
 
 
+def mbd(img, device=None):
+    """Minimum barrier distance (rows, cols) f32 of the (rows, cols) image
+    ``img``, three alternating raster passes (pyx:158-201): K9. Numpy input
+    goes to ``device`` (``cuda`` by default); tensors stay where they
+    are."""
+    return K9.mbd(on_device(img, call_device(img, device), torch.float32))
+
+
+def get_weights(img_srgb, tile_size: float, device=None):
+    """Saliency weights (H*W,) f32 in [1, inf) of the (H, W, 3) sRGB image
+    ``img_srgb`` (rows = H, cols = W), or None when a side is <= 3
+    (pyx:203-313), through :func:`get_weights_planar` (K9, K10). Numpy
+    input goes to ``device`` (``cuda`` by default); tensors stay where
+    they are."""
+    img = on_device(img_srgb, call_device(img_srgb, device))
+    rows, cols = int(img.shape[0]), int(img.shape[1])
+    return get_weights_planar(tuple(img[..., k] for k in range(3)), rows,
+                              cols, tile_size)
+
+
 def _unit_max(x):
     return x / torch.clamp_min(x.max(), 1e-30)
 
@@ -87,7 +108,7 @@ def get_weights_planar(channels, rows: int, cols: int, tile_size: float,
         return None
     r, g, b = (ch.reshape(rows, cols).to(torch.float32) for ch in channels)
 
-    sal = mbd((r + g + b) * cs._f32(1.0 / 3.0))
+    sal = K9.mbd((r + g + b) * cs._f32(1.0 / 3.0))
 
     border = max(int(0.1 * (rows * cols) ** 0.5), 1)
     u_final = _border_prior(cs.srgb_to_lab((r, g, b)), border)

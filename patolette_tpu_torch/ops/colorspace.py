@@ -23,7 +23,9 @@ The composites the pipeline converts images with (``srgb_to_working``,
 (``kernels/colorspace.py``): one kernel pass on the card, these functions'
 ``*_plain`` glue on the CPU. They also take an ``(N, 3)`` uint8 tensor,
 normalised as the upload normalises it. The other conversions (the
-palette's way back to sRGB, the pairwise steps) stay glue.
+palette's way back to sRGB, ``cieluv_to_srgb``, ``ictcp_to_srgb``, the
+pairwise steps) stay glue: the JAX package runs them on palettes, never
+on an image, so they are no device hot loop.
 
 Conventions (identical to the reference and the JAX package):
   * sRGB values are gamma-encoded in [0, 1]; gamma decode/encode clamp to
@@ -37,6 +39,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from patolette_tpu_torch.utils.device import call_device, on_device
 
 # Matrices act on column vectors: out = M @ [c0, c1, c2]^T.
 
@@ -358,6 +362,29 @@ def cieluv_to_linear_rec2020(luv):
 
 def srgb_to_ictcp(rgb):
     return linear_rec2020_to_ictcp(srgb_to_linear_rec2020_plain(rgb))
+
+
+def _put(x, device):
+    """``x`` (numpy or tensors, an array or a 3-tuple) as f32 where the
+    call runs (``utils/device.py``)."""
+    dev = call_device(x, device)
+    if _is_planar(x):
+        return tuple(on_device(ch, dev, torch.float32) for ch in x)
+    return on_device(x, dev, torch.float32)
+
+
+def cieluv_to_srgb(luv, device=None):
+    """CIELuv -> sRGB through XYZ, glue in either form. Numpy input goes
+    to ``device`` (``cuda`` by default); tensors stay where they are."""
+    return xyz_to_srgb(cieluv_to_xyz(_put(luv, device)))
+
+
+def ictcp_to_srgb(ictcp, device=None):
+    """ICtCp (halved Ct) -> sRGB through linear Rec2020, glue in either
+    form. Numpy input goes to ``device`` (``cuda`` by default); tensors
+    stay where they are."""
+    return linear_rec2020_to_srgb(ictcp_to_linear_rec2020(_put(ictcp,
+                                                               device)))
 
 
 def srgb_to_lab_plain(rgb):

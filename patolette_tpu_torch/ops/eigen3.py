@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from patolette_tpu_torch.utils.device import call_device, on_device
+
 _EPS = 1e-20
 
 
@@ -113,3 +115,17 @@ def principal_axis(a):
     )
     return axis, evals
 
+
+def pca_from_cov(cov, delta=1e-16, device=None):
+    """``(axis (..., 3), explained (...))`` of symmetric ``(..., 3, 3)``
+    covariances (reference pca.c:122-149, JAX ``eigen3.py:105``): the
+    principal axis, and ``lambda_max / sum(lambda)`` where that sum exceeds
+    ``delta``, else 0. Numpy input goes to ``device`` (``cuda`` by
+    default); tensors stay where they are; f32."""
+    cov = on_device(cov, call_device(cov, device), torch.float32)
+    axis, evals = principal_axis(cov)
+    total = _sum3(evals[..., 0], evals[..., 1], evals[..., 2])
+    ok = total > delta
+    explained = torch.where(ok, evals[..., 2] / torch.where(ok, total, 1.0),
+                            0.0)
+    return axis, explained

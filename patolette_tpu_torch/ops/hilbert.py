@@ -10,9 +10,10 @@ walk (README divergence S3).
 
 from __future__ import annotations
 
-from patolette_tpu_torch.kernels.hilbert import curve_order, visit_order
+from patolette_tpu_torch.kernels.hilbert import (curve_order, visit_order,
+                                                 xy_to_d)
 
-__all__ = ["curve_order", "pixel_visit_order"]
+__all__ = ["curve_order", "pixel_visit_order", "xy_to_d"]
 
 
 def pixel_visit_order(width: int, height: int, device="cuda"):

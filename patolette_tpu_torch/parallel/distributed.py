@@ -28,6 +28,7 @@ import inspect
 import torch.distributed as dist
 
 from patolette_tpu_torch.models import pipeline as PIPE
+from patolette_tpu_torch.parallel import mesh as PM
 from patolette_tpu_torch.parallel.mesh import Mesh, rank_device
 
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
@@ -83,3 +84,20 @@ def quantize_distributed(width: int, height: int, local_rows,
                                    local=True)
     except Exception as e:  # noqa: BLE001 -- the reference's -1 surface
         return PIPE.typed_failure(e)
+
+
+def quantize_palette_distributed(mesh: Mesh, palette_size: int, **kw):
+    """The palette pipeline over the processes of ``mesh``: the same
+    function as :func:`parallel.mesh.quantize_palette_sharded`, with its
+    arguments (JAX ``distributed.py:82-88``). Each process calls the
+    returned ``fn`` on its own rows and gets the palette and its rows'
+    map."""
+    return PM.quantize_palette_sharded(mesh, palette_size, **kw)
+
+
+def dither_distributed(mesh: Mesh, width: int, height: int,
+                       color_space: int, **kw):
+    """Per-strip dither over the processes of ``mesh``: the same function
+    as :func:`parallel.mesh.dither_sharded`, with its arguments (JAX
+    ``distributed.py:91-96``)."""
+    return PM.dither_sharded(mesh, width, height, color_space, **kw)

@@ -22,8 +22,16 @@ Tolerances:
     over the ranks in another order), the colour within 1e-4 of the
     input's (the ICtCp round trip in f32, the goldens' sRGB tolerance).
   * per-strip dither with the same working palette against JAX's
-    ``dither_sharded``: map >= 99.9%; per-strip saliency against JAX's
-    ``saliency_sharded``: rtol 1e-5 (``test_torch_saliency.py``).
+    ``dither_sharded``: map >= 99.9%, in both input forms; per-strip
+    saliency against JAX's ``saliency_sharded``: rtol 1e-5
+    (``test_torch_saliency.py``).
+  * ``quantize_palette_distributed`` with no draws (the palette pipeline
+    with K11 on the reduced moments) against JAX's
+    ``quantize_palette_sharded``: the same valid slots, each entry within
+    1e-4 (the sums over ranks in another order), map >= 99.9%; its planar
+    and interleaved forms the same bits (in the worker).
+  * ``dither_distributed`` on the working palette ``quantize(mesh=)``
+    ended with: that call's dithered map, bit for bit (in the worker).
   * shapes that do not divide over the ranks: the single-device route's
     result, bit for bit.
 """
@@ -174,11 +182,49 @@ lo_e, hi_e = PM.shard_range(W_E * H_E, mesh)
 strip = torch.from_numpy(img_e[lo_e:hi_e].astype(np.float32))
 pal_e, valid_e = strip_palette()
 centers = TCS.srgb_to_working(torch.from_numpy(pal_e), 2)
-dmap = TP._strip_dither(strip, centers, torch.from_numpy(valid_e), W_E,
-                        strip_h, 2, 64)
+dmap = PM.dither_sharded(mesh, W_E, H_E, 2, segment=64, planar=True)(
+    strip.unbind(1), centers, torch.from_numpy(valid_e))
 res["strip_dither"] = PM.gather(mesh, dmap).numpy()
-sal = TP._strip_saliency(strip, W_E, strip_h, TILE_E, W_E * H_E)
+sal = PM.saliency_sharded(mesh, W_E, strip_h, TILE_E, W_E * H_E)(
+    tuple(img_e[lo_e:hi_e, k].astype(np.float32) for k in range(3)))
 res["strip_saliency"] = PM.gather(mesh, sal).numpy()
+
+# f. the JAX package's distributed factories on image_a, no draws: the
+# palette pipeline (K11 on the reduced moments, the device-control LQ
+# loop and their exchanges), planar and interleaved alike; the dither in
+# both forms; and the dither of quantize(mesh=)'s own palette gives its map
+lo_a, hi_a = PM.shard_range(64 * 64, mesh)
+rows_a = image_a()[lo_a:hi_a].astype(np.float32)
+pal_q, valid_q, map_q = D.quantize_palette_distributed(
+    mesh, 8, kmeans_niter=5)(rows_a, None)
+out_p = D.quantize_palette_distributed(mesh, 8, kmeans_niter=5,
+                                       planar=True)(tuple(rows_a.T), None)
+for a, b in zip((pal_q, valid_q, map_q), out_p):
+    assert torch.equal(a, b)
+assert len(map_q) == hi_a - lo_a
+res["qpd_pal"], res["qpd_valid"] = pal_q.numpy(), valid_q.numpy()
+res["qpd_map"] = PM.gather(mesh, map_q).numpy()
+work_a = TCS.srgb_to_working(torch.from_numpy(rows_a), 2)
+res["dd_map"] = PM.gather(mesh, D.dither_distributed(
+    mesh, 64, 64, 2, segment=64)(work_a, centers, valid_e)).numpy()
+res["ddp_map"] = PM.gather(mesh, D.dither_distributed(
+    mesh, 64, 64, 2, segment=64, planar=True)(
+        tuple(rows_a.T), centers, valid_e)).numpy()
+seen, finish = {}, TP._finish_palette
+
+
+def spy(c, v, p, csp):
+    seen.update(centers=c, valid=v)
+    return finish(c, v, p, csp)
+
+
+TP._finish_palette = spy
+_, map_m = run("a_dither", 64, 64, image_a(), 8, dither=True, tile_size=0,
+               kmeans_niter=5, dither_segment=64)
+TP._finish_palette = finish
+dm = D.dither_distributed(mesh, 64, 64, 2, segment=64, planar=True)(
+    tuple(rows_a.T), seen["centers"], seen["valid"])
+assert np.array_equal(PM.gather(mesh, dm).numpy(), map_m)
 
 # g. shapes that do not divide over the ranks
 ok, pal_g, map_g, msg = pt.quantize(11, 13, image_a(13, 11, 5), 4,
@@ -195,6 +241,11 @@ ok, _, _, msg = D.quantize_distributed(
     12, 13, image_a(13, 12, 5)[lo_g:hi_g], 4, mesh=mesh, dither=True,
     tile_size=0, kmeans_niter=0)
 assert not ok and "divide" in msg, msg
+try:  # the JAX factory asserts the height divides
+    D.dither_distributed(mesh, 12, 13, 2)
+    raise AssertionError("a height of 13 over the ranks")
+except ValueError as e:
+    assert "divide" in str(e)
 
 np.savez(os.path.join(outdir, f"r{rank}.npz"), **res)
 torch.distributed.destroy_process_group()
@@ -269,6 +320,21 @@ def test_ranks_against_each_other_and_jax(tmp_path, world):
                 chans, jwork, jnp.asarray(valid_e)))
         jsal = np.asarray(JM.saliency_sharded(
             jmesh, W_E, H_E // world, TILE_E, total_pixels=W_E * H_E)(chans))
+        xa = image_a().astype(np.float32)
+        jq = [np.asarray(v) for v in JM.quantize_palette_sharded(
+            jmesh, 8, kmeans_niter=5)(JM.shard_pixels(xa, jmesh),
+                                      JM.put_vector_sharded(np.ones(len(xa)),
+                                                            jmesh))]
+        # the worker's working colours and palette (the transform is held
+        # apart, test_torch_colorspace.py)
+        twork_a, tpal_e = (TCS.srgb_to_working(torch.from_numpy(a), 2).numpy()
+                           for a in (xa, pal_e))
+        jdd = np.asarray(JM.dither_sharded(jmesh, 64, 64, 2, segment=64)(
+            JM.shard_pixels(twork_a, jmesh), tpal_e, jnp.asarray(valid_e)))
+        jddp = np.asarray(JM.dither_sharded(
+            jmesh, 64, 64, 2, segment=64, planar=True)(
+                JM.put_planar_sharded(xa, jmesh), tpal_e,
+                jnp.asarray(valid_e)))
     finally:
         _wait(procs)
     ranks = [dict(np.load(tmp_path / f"r{r}.npz")) for r in range(world)]
@@ -293,3 +359,12 @@ def test_ranks_against_each_other_and_jax(tmp_path, world):
 
     assert (res["strip_dither"] == jdither).mean() >= 0.999
     np.testing.assert_allclose(res["strip_saliency"], jsal, rtol=1e-5, atol=0)
+
+    # the distributed factories against the JAX package's sharded ones
+    np.testing.assert_array_equal(res["qpd_valid"], jq[1])
+    v = jq[1]
+    np.testing.assert_allclose(res["qpd_pal"][v], jq[0][v], atol=1e-4,
+                               rtol=0)
+    assert (res["qpd_map"] == jq[2]).mean() >= 0.999
+    assert (res["dd_map"] == jdd).mean() >= 0.999
+    assert (res["ddp_map"] == jddp).mean() >= 0.999

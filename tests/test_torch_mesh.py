@@ -38,6 +38,7 @@ from patolette_tpu_torch.models import pipeline as TP
 from patolette_tpu_torch.ops import colorspace as TCS
 from patolette_tpu_torch.ops import lut as TL
 from patolette_tpu_torch.parallel import distributed as TD
+from patolette_tpu_torch.parallel import mesh as PM
 from patolette_tpu_torch.parallel.mesh import Mesh
 from test_torch_cores import share_cores  # noqa: F401
 
@@ -164,6 +165,39 @@ def test_one_rank_palette_only_and_rows_entry(meshes):
     assert ok and ok3, msg
     np.testing.assert_array_equal(pal3, pal2)
     np.testing.assert_array_equal(pmap3, pmap2)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_one_rank_palette_distributed_equals_single_device(meshes, planar):
+    """``quantize_palette_distributed`` with one rank and no draws (the
+    mesh palette core: K11 on the exchanged moments, the device-control LQ
+    loop with its exchanges) equals ``palette_pipeline_device`` without a
+    mesh, bit for bit in centres, valid flags and map: one rank's exchange
+    is exact."""
+    x = _image(seed=4).astype(np.float32)
+    w = np.random.default_rng(4).uniform(0.5, 2.0, len(x)).astype(np.float32)
+    colors = tuple(x.T) if planar else x
+    got = TD.quantize_palette_distributed(
+        meshes[0], P, color_space=1, kmeans_niter=4, planar=planar)(colors, w)
+    want = TP.palette_pipeline_device(colors, w, P, color_space=1,
+                                      kmeans_niter=4, device="cpu")
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_factories_reject_what_jax_asserts(meshes):
+    """A strip of <= 3 rows and the other input form raise ``ValueError``
+    (the JAX factories assert; ``test_torch_distributed.py`` holds the
+    height that does not divide)."""
+    mesh = meshes[0]
+    with pytest.raises(ValueError, match="too thin"):
+        PM.saliency_sharded(mesh, W, 3, 128.0, W * 3)
+    x = _image().astype(np.float32)
+    with pytest.raises(ValueError, match="planar"):
+        PM.quantize_palette_sharded(mesh, P, planar=True)(x, None)
+    with pytest.raises(ValueError, match="planar"):
+        PM.dither_sharded(mesh, W, H, 2)(tuple(x.T), x[:P], np.ones(P, bool))
 
 
 def test_mesh_device_must_agree(meshes):
