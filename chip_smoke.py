@@ -74,13 +74,17 @@ Phases, each printing one JSON line:
      iterations and no dither or saliency (K1-K4 and K10 must launch, two
      runs must agree bit for bit, peak device bytes per pixel at or below
      the pipeline's BYTES_PER_PIXEL), then the same pixels as uint8, which
-     take the sampled LUT route (K5, K1, K2, K4, K10 must launch and K3
-     must not, two runs must agree bit for bit, CIELuv MSE within 1% of
-     the float32 call's; the table comes back through K6's v2 words);
+     take the sampled LUT route's fused program (K5, K11, K1, K2, K4, K10
+     must launch and K3 must not, two runs must agree bit for bit, CIELuv
+     MSE within 1% of the float32 call's; the table comes back through
+     K6's v2 words); one more call runs the program under
+     torch.cuda.set_sync_debug_mode("error") from the sample upload to the
+     first pull (any host read there fails the phase), and one staged
+     call (PATOLETTE_NO_FUSED_LUT: the host f64 DP) stands beside it;
   4b. e2e-u8-ramp: a 4K uint8 grey ramp of 256 levels on the same route,
-     whose table overflows v2 and comes back through K6's v1 words (K6 v1
-     must launch, K3 must not; the map equal to K3's direct map against
-     the same palette);
+     whose table overflows v2 and comes back through K6's v1 words (K6 v2
+     and v1 must launch once each, K3 must not; the map equal to K3's
+     direct map against the program's palette);
   5. e2e-default: the library's default call on the same image (MBD
      saliency, weighted palette, Riemersma dither; K7, K8, K9, K1, K2, K4
      and K10 must launch, two runs must agree bit for bit, the CIELuv MSE
@@ -108,25 +112,37 @@ Phases, each printing one JSON line:
      K10's working image against the same glue on the CPU (1e-4) and back
      to the input; pca_from_cov on 2^20 covariances (a degenerate one in
      64) within 1e-6 of device="cpu";
+  5d. e2e-image-fused-lut: the opt-in full-image fused LUT route
+     (PATOLETTE_FUSED_IMAGE_LUT=1) on the 4K uint8 image with saliency,
+     undithered: K9, K10, K11, K1, K2, K4, K5, K6 must launch and K3 must
+     not, bit-identical reruns, peak device memory within the route's
+     footprint model (pipeline._image_lut_bytes), the map equal to K3's
+     direct map against the same palette;
   6. e2e-headline: bench.py's call through the port (10000x10000 uint8,
      256 colours, 25 KMeans iterations, ICtCp, no dither or saliency): one
-     warm call, best of 3, the launch and repeat checks, CIELuv MSE on a
+     warm call, best of 3, the launch and repeat checks (K11 among them),
+     CIELuv MSE on a
      fixed 1M-pixel subset, peak device memory within 10% of the 4K uint8
-     call's (nothing on the device grows with N); then one call at 1024
+     call's (nothing on the device grows with N), the fused program's
+     palette bit for bit palette_pipeline_device's on the same samples
+     (S11: KMeans on the LQ sample); then one call at 1024
      colours, whose table is u16 (K5 and K6's u16 v2 must launch, K3 must
      not, the MSE must be below the 256-colour call's); K5 on both calls'
      own palettes equal to its plain version and to K3 on all 2^24 codes
      (kernel-k5-headline);
-  7. the streamed route: e2e-strip-dither, the 4K float32 image dithered
-     without saliency on 2 row strips (K7, K8, K10, K1, K2, K4 must launch,
-     K3 and K9 must not, bit-identical reruns, the dither checks of
+  7. the streamed route, its palette by the sampled route's program
+     without the table: e2e-strip-dither, the 4K float32 image dithered
+     without saliency on 2 row strips (K7, K8, K10, K11, K1, K2, K4 must
+     launch, K3 and K9 must not, bit-identical reruns, the dither checks of
      e2e-default); e2e-strip-headline, the 100 MP uint8 image dithered on
      6 strips through the packed feed, then a 7680x4320 uint8 image on 2
      (peak device memory of the 100 MP call at most 1.1x the 33 MP
      call's); e2e-over-budget, the 4K undithered call under a lowered
      device budget (its map equal to K3's whole-image map against the
      same palette, its CIELuv MSE within 1% of the resident call's);
-  8. the multi-device route, quantize(mesh=): e2e-mesh-u8, -f32, -default
+  8. the multi-device route, quantize(mesh=), its palette by
+     quantize_palette_sharded (K11 on the reduced moments, launched on
+     every call): e2e-mesh-u8, -f32, -default
      and -headline with one rank (a world-1 NCCL group in this process on
      cuda:0): the 4K uint8 call on the sharded table (K10, K5, K6 must
      launch, K3 must not; the assembled table equal to the single-device
@@ -2179,8 +2195,10 @@ def phase_laps(torch, rounds=LAPS_ROUNDS):
     for name in calls:
         run(name)
         run(name)
-    laps = ("lq", "saliency", "sample-in", "lut-build", "lut-build+pull",
-            "lut-map-host", "dither", "nn-map", "palette", "one-shot")
+    laps = ("lq", "gq-dp", "saliency", "sample-in", "lut-build",
+            "lut-build+pull", "palette+lut-build", "lut-pull",
+            "lut-map-host", "palette (device)", "dither", "nn-map",
+            "palette", "one-shot")
     out = {name: {k: [] for k in ("wall_s", *laps,
                                   *(f"{lap}_synced" for lap in laps))}
            for name in calls}
@@ -2458,14 +2476,20 @@ def _profile_call(torch, call, name):
 # Kernels each path must launch (names of kernels.LAUNCHES).
 MAIN_PATH_KERNELS = ("segment_sum", "lq_candidates", "assign_planar",
                      "kmeans_step", "color_convert")
-U8_LUT_KERNELS = ("lut_argmin", "rle_encode_u8_v2", "segment_sum",
+U8_LUT_KERNELS = ("lut_argmin", "rle_encode_u8_v2", "gq_dp", "segment_sum",
                   "lq_candidates", "kmeans_step", "color_convert")
 DEFAULT_PATH_KERNELS = ("visit_order", "dither_scan", "mbd", "segment_sum",
                         "lq_candidates", "kmeans_step", "color_convert")
 STRIP_DITHER_KERNELS = ("visit_order", "dither_scan", "color_convert",
-                        "segment_sum", "lq_candidates", "kmeans_step")
-OVER_BUDGET_KERNELS = ("color_convert", "segment_sum", "lq_candidates",
-                       "assign_planar", "kmeans_step")
+                        "gq_dp", "segment_sum", "lq_candidates",
+                        "kmeans_step")
+OVER_BUDGET_KERNELS = ("color_convert", "gq_dp", "segment_sum",
+                       "lq_candidates", "assign_planar", "kmeans_step")
+# the opt-in full-image fused LUT route (PATOLETTE_FUSED_IMAGE_LUT=1) with
+# saliency
+IMAGE_LUT_KERNELS = ("mbd", "color_convert", "gq_dp", "segment_sum",
+                     "lq_candidates", "kmeans_step", "lut_argmin",
+                     "rle_encode_u8_v2")
 
 
 def _drive(torch, run, colors, path_kernels, what):
@@ -2531,6 +2555,72 @@ def _check_outputs(pal, pmap, p, n):
     return int(used.sum())
 
 
+def _program_palette(torch, colors, p, niter, seed=1234):
+    """The working-space palette (centres, valid) the fused sampled and
+    the streamed routes search for ``colors`` at their defaults: the
+    route's host draws, then the palette program (K10, K1, K11, K2,
+    K4)."""
+    from patolette_tpu_torch.models import pipeline
+
+    dev = torch.device(DEV, torch.cuda.current_device())
+    samples = pipeline._upload_samples(
+        colors, p, weights=None, seed=seed, lq_max_samples=1 << 18,
+        kmeans_niter=niter, kmeans_max_samples=512 ** 2, device=dev)
+    centers, valid, _ = pipeline._sample_palette_program(
+        *samples, p=p, csp=2, kmeans_niter=niter,
+        kmeans_max_samples=512 ** 2, seed=seed, lq_batch_splits=8)
+    return centers, valid, samples
+
+
+class _StrictFusedProgram:
+    """Runs the fused sampled program from the sample upload to the first
+    pull under ``torch.cuda.set_sync_debug_mode("error")``: any host read
+    there raises. Counts the uploads and the first pulls it saw."""
+
+    def __init__(self, torch):
+        from patolette_tpu_torch.models import pipeline
+        from patolette_tpu_torch.ops import lut
+
+        self.torch, self.pipeline, self.lut = torch, pipeline, lut
+        self.uploads = self.pulls = 0
+
+    def _strict(self, fn, on):
+        torch = self.torch
+
+        def run(*args, **kw):
+            if on:
+                torch.cuda.set_sync_debug_mode("error")
+                self.uploads += 1
+            try:
+                return fn(*args, **kw)
+            except RuntimeError:  # quantize() reports only the message
+                traceback.print_exc(file=sys.stderr)
+                torch.cuda.set_sync_debug_mode(0)
+                raise
+        return run
+
+    def __enter__(self):
+        torch, pl, lut = self.torch, self.pipeline, self.lut
+        self.real = (pl._upload_samples, pl._sample_lut_program,
+                     lut.pull_encoded_v2)
+        up, prog, pull = self.real
+
+        def first_pull(*args, **kw):
+            torch.cuda.set_sync_debug_mode(0)
+            self.pulls += 1
+            return pull(*args, **kw)
+
+        pl._upload_samples = self._strict(up, True)
+        pl._sample_lut_program = self._strict(prog, False)
+        lut.pull_encoded_v2 = first_pull
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        (self.pipeline._upload_samples, self.pipeline._sample_lut_program,
+         self.lut.pull_encoded_v2) = self.real
+
+
 def phase_e2e(torch, profile=False):
     """The undithered main path (K1-K4), float32 and uint8."""
     import numpy as np
@@ -2572,6 +2662,35 @@ def phase_e2e(torch, profile=False):
     mse8f = _mse_luv(torch, x8, palf, pmapf)[0]
     check(abs(mse8 / mse8f - 1.0) <= 0.01,
           f"uint8 LUT route CIELuv MSE {mse8} against {mse8f} as float32")
+    # the fused program from the sample upload to the first pull reads
+    # nothing back from the device
+    with _StrictFusedProgram(torch) as strict:
+        pal8s, pmap8s = run(img_u8)
+    check(strict.uploads == 1 and strict.pulls == 1,
+          f"strict fused call: {strict.uploads} uploads, {strict.pulls} "
+          "first pulls")
+    check(np.array_equal(pal8s, pal8) and np.array_equal(pmap8s, pmap8),
+          "the strict fused call differs")
+    # the staged variant (PATOLETTE_NO_FUSED_LUT: the host f64 DP, staged
+    # dispatch) on the same call, beside the fused one
+    from patolette_tpu_torch import kernels
+    from patolette_tpu_torch.models import pipeline
+
+    os.environ["PATOLETTE_NO_FUSED_LUT"] = "1"
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        pals, pmaps = run(img_u8)
+        staged_s = time.perf_counter() - t0
+        staged_laps = dict(pipeline.LAST_STAGE_TIMES)
+        check("gq-dp" in staged_laps and kernels.LAUNCHES["gq_dp"] == 0,
+              "the PATOLETTE_NO_FUSED_LUT call missed the staged variant")
+    finally:
+        del os.environ["PATOLETTE_NO_FUSED_LUT"]
+    _check_outputs(pals, pmaps, p, w * h)
+    mse8s = _mse_luv(torch, x8, pals, pmaps)[0]
+    check(np.isfinite(mse8s) and mse8s < 0.5 * cube8,
+          f"staged uint8 CIELuv MSE {mse8s} against {cube8} for the cube")
 
     if profile:
         _profile_call(torch, lambda: run(img), "main")
@@ -2587,6 +2706,10 @@ def phase_e2e(torch, profile=False):
           "mp_per_s": w * h / 1e6 / stats8["best_s"],
           "cieluv_mse": mse8, "cieluv_mse_cube216": cube8,
           "cieluv_mse_same_pixels_float32": mse8f,
+          "fused_program_sync_debug": "error",
+          "staged_wall_s": staged_s, "staged_stage_ms": staged_laps,
+          "cieluv_mse_staged": mse8s,
+          "mse_ratio_fused_to_staged": mse8 / mse8s,
           "bit_identical_runs": True})
     return (stats["launches"], stats8["launches"],
             stats8["peak_device_bytes"], mse)
@@ -2631,14 +2754,17 @@ def phase_e2e_u8_ramp(torch):
                               "the uint8 ramp")
     check(stats["launches"]["assign_planar"] == 0,
           "K3 launched on the uint8 ramp")
+    # the program's v2 words overflowed once; the table went straight to
+    # v1, without a second v2 encode
+    check(stats["launches"]["rle_encode_u8_v2"] == 1
+          and stats["launches"]["rle_encode_u8"] == 1,
+          "the ramp's pull: K6 v2 x"
+          f"{stats['launches']['rle_encode_u8_v2']}, v1 x"
+          f"{stats['launches']['rle_encode_u8']}")
     check("lut-map-host" in stats["stage_ms"], "the ramp missed the route")
     used = _check_outputs(pal, pmap, p, w * h)
     dev = torch.device(DEV, torch.cuda.current_device())
-    centers, valid = pipeline._sample_palette(
-        img, p, csp=2, kmeans_niter=32, kmeans_max_samples=512 ** 2,
-        verbose=False, weights=None, lq_max_samples=1 << 18,
-        lq_batch_splits=8, seed=1234, device=dev,
-        timer=pipeline._StageTimer(False, False, dev))
+    centers, valid, _ = _program_palette(torch, img, p, 32)
     check(np.array_equal(pipeline._finish_palette(centers, valid, p, 2),
                          pal), "the ramp's palette differs")
     direct = assign_planar(color_convert(pipeline._put(img, dev), 2, "ictcp"),
@@ -2649,6 +2775,81 @@ def phase_e2e_u8_ramp(torch):
           f"ramp map differs from K3's direct map on {mismatches} pixels")
     emit({"phase": "e2e-u8-ramp", "shape": [w, h], "palette": p,
           "kmeans_niter": 32, **stats, "palette_used": used,
+          "direct_map_mismatches": mismatches, "k6_v2_launches": 1,
+          "k6_v1_launches": 1, "bit_identical_runs": True})
+    return stats["launches"]
+
+
+def phase_e2e_image_fused_lut(torch):
+    """The opt-in full-image fused LUT route (PATOLETTE_FUSED_IMAGE_LUT=1):
+    the 4K uint8 image with saliency, 256 colours, undithered. Its path
+    kernels must launch and K3 must not, its peak device bytes must stay
+    within the route's footprint model (IMAGE_LUT_BYTES_PER_PIXEL a pixel
+    and IMAGE_LUT_FIXED_BYTES), and its map must equal K3's direct map
+    against the same palette bit for bit."""
+    import numpy as np
+
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch.kernels.colorspace import color_convert
+    from patolette_tpu_torch.models import pipeline
+    from patolette_tpu_torch.ops import colorspace as cs
+    from patolette_tpu_torch.ops.assign import assign_planar
+
+    w, h, p = W, H, 256
+    img = np.round(synth_image_f32(w, h) * 255.0).astype(np.uint8)
+    kw = dict(dither=False, kmeans_niter=32, color_space=pt.ColorSpace_ICtCp)
+
+    def run(colors, **extra):
+        ok, pal, pmap, msg = pt.quantize(w, h, colors, p, **kw, **extra)
+        check(ok, f"image fused LUT quantize failed: {msg}")
+        return pal, pmap
+
+    seen, real = {}, pipeline._lut_program
+
+    def watched(centers, valid, csp):
+        seen.update(centers=centers.clone(), valid=valid.clone())
+        return real(centers, valid, csp)
+
+    os.environ["PATOLETTE_FUSED_IMAGE_LUT"] = "1"
+    pipeline._lut_program = watched
+    try:
+        pal, pmap, stats = _drive(torch, run, img, IMAGE_LUT_KERNELS,
+                                  "the image fused LUT route")
+    finally:
+        pipeline._lut_program = real
+        del os.environ["PATOLETTE_FUSED_IMAGE_LUT"]
+    check(stats["launches"]["assign_planar"] == 0,
+          "K3 launched on the image fused LUT route")
+    check("saliency+palette+lut-build" in stats["stage_ms"],
+          "the call missed the image fused LUT route")
+    used = _check_outputs(pal, pmap, p, w * h)
+    model = pipeline._image_lut_bytes(w * h)
+    check(stats["peak_device_bytes"] <= model,
+          f"peak {stats['peak_device_bytes']} B above the route's model "
+          f"{model} B")
+    centers, valid = seen["centers"], seen["valid"]
+    check(np.array_equal(pipeline._finish_palette(centers, valid, p, 2),
+                         pal), "the palette is not the program's")
+    dev = torch.device(DEV, torch.cuda.current_device())
+    direct = assign_planar(color_convert(pipeline._put(img, dev), 2, "ictcp"),
+                           cs.working_to_ictcp(centers, 2),
+                           valid).cpu().numpy()
+    mismatches = int((direct != pmap).sum())
+    check(mismatches == 0, f"image fused LUT map differs from K3's direct "
+          f"map on {mismatches} pixels")
+    x8 = img.astype(np.float32) / np.float32(255.0)
+    mse, cube = _mse_luv(torch, x8, pal, pmap)
+    check(np.isfinite(mse) and mse < 0.5 * cube,
+          f"image fused LUT CIELuv MSE {mse} against {cube} for the cube")
+    fixed = pipeline.IMAGE_LUT_FIXED_BYTES
+    emit({"phase": "e2e-image-fused-lut", "shape": [w, h], "palette": p,
+          "kmeans_niter": 32, **stats,
+          "mp_per_s": w * h / 1e6 / stats["best_s"],
+          "peak_device_bytes_per_pixel": stats["peak_device_bytes"] / (w * h),
+          "peak_device_bytes_per_pixel_above_fixed":
+              (stats["peak_device_bytes"] - fixed) / (w * h),
+          "footprint_model_bytes": model, "palette_used": used,
+          "cieluv_mse": mse, "cieluv_mse_cube216": cube,
           "direct_map_mismatches": mismatches, "bit_identical_runs": True})
     return stats["launches"]
 
@@ -2705,6 +2906,21 @@ def phase_e2e_headline(torch, peak_4k):
           f"headline CIELuv MSE {mse} against {cube} for the cube")
     check(abs(peak - peak_4k) <= 0.1 * peak_4k,
           f"headline peak device bytes {peak} against {peak_4k} at 4K")
+    # the fused program's palette is palette_pipeline_device's on the same
+    # samples: at p = 256 the KMeans cap is the LQ sample's size, so KMeans
+    # runs on the LQ sample (S11) and the core draws nothing
+    centers, valid, samples = _program_palette(torch, img, p, iters)
+    check(samples[2] is None, "no S11 reuse at the headline shape")
+    ref = pipeline.palette_pipeline_device(
+        samples[0], None, p, color_space=2, kmeans_niter=iters,
+        kmeans_max_samples=512 ** 2, seed=1234, lq_max_samples=0,
+        with_map=False)
+    check(torch.equal(centers, ref[0]) and torch.equal(valid, ref[1]),
+          "the fused program's palette differs from "
+          "palette_pipeline_device's on the same samples")
+    check(np.array_equal(pipeline._finish_palette(centers, valid, p, 2),
+                         pal), "the headline palette is not the program's")
+    del samples, ref
     torch.cuda.reset_peak_memory_stats()
     with _K5Watch() as k5_seen:
         ok, *_ = pt.quantize(w, h, img, p, dither=False, tile_size=0,
@@ -2720,6 +2936,7 @@ def phase_e2e_headline(torch, peak_4k):
           "stage_ms": laps[walls.index(best)], "stage_ms_synced": synced,
           "launches": launches, "peak_device_bytes": peak,
           "peak_device_bytes_4k_u8": peak_4k, "cieluv_mse_1m": mse,
+          "palette_equals_palette_pipeline_device": True,
           "cieluv_mse_cube216_1m": cube, "bit_identical_runs": True})
 
     # 1024 colours on the same image: above 256 entries the table is u16,
@@ -3414,11 +3631,7 @@ def phase_e2e_over_budget(torch, mse_resident):
 
     # the streamed route's palette, then K3 over the whole image
     dev = torch.device(DEV, torch.cuda.current_device())
-    centers, valid = pipeline._sample_palette(
-        img, p, csp=2, kmeans_niter=32, kmeans_max_samples=512 ** 2,
-        verbose=False, weights=None, lq_max_samples=1 << 18,
-        lq_batch_splits=8, seed=1234, device=dev,
-        timer=pipeline._StageTimer(False, False, dev))
+    centers, valid, _ = _program_palette(torch, img, p, 32)
     check(np.array_equal(pipeline._finish_palette(centers, valid, p, 2),
                          pal), "the over-budget call's palette differs")
     xw = color_convert(pipeline._put(img, dev), 2, "working")
@@ -3440,9 +3653,10 @@ def phase_e2e_over_budget(torch, mse_resident):
 
 
 MESH_U8_KERNELS = ("color_convert", "lut_argmin", "rle_encode_u8_v2",
-                   "segment_sum", "lq_candidates", "kmeans_step")
-MESH_F32_KERNELS = ("color_convert", "assign_planar", "segment_sum",
-                    "lq_candidates", "kmeans_step")
+                   "gq_dp", "segment_sum", "lq_candidates", "kmeans_step")
+MESH_F32_KERNELS = ("color_convert", "assign_planar", "gq_dp",
+                    "segment_sum", "lq_candidates", "kmeans_step")
+MESH_DEFAULT_KERNELS = DEFAULT_PATH_KERNELS + ("gq_dp",)
 MESH_LAPS = {"stage-in", "palette (sharded)", "nn-map"}
 MESH_DEFAULT_LAPS = {"stage-in", "saliency", "palette (sharded)", "dither"}
 # The mesh route draws its samples per rank from (seed, rank), the
@@ -3610,7 +3824,7 @@ def phase_e2e_mesh(torch, img_100mp, mse_headline, profile=False):
 
         # 4K default call: saliency and dither on the strip
         run = mesh_run({})
-        pal, pmap, st = _drive(torch, run, img, DEFAULT_PATH_KERNELS,
+        pal, pmap, st = _drive(torch, run, img, MESH_DEFAULT_KERNELS,
                                "the mesh default call")
         check(set(st["stage_ms"]) == MESH_DEFAULT_LAPS,
               f"laps {st['stage_ms']}")
@@ -3873,7 +4087,7 @@ def phase_e2e_mesh4(torch, mse_world1):
         for name in MESH_U8_KERNELS:
             check(m["u8"]["launches"][name] > 0,
                   f"rank {r}: {name} not launched on the uint8 call")
-        for name in DEFAULT_PATH_KERNELS:
+        for name in MESH_DEFAULT_KERNELS:
             check(m["default"]["launches"][name] > 0,
                   f"rank {r}: {name} not launched on the default call")
     seen = {"centers": torch.from_numpy(res[0]["centers"]).to(DEV),
@@ -4001,7 +4215,7 @@ SOURCES = {
     "rle_encode_u16_v2": ("patolette_tpu_torch/csrc/rle.cu",
                           "patolette_tpu/ops/lut.py:270", "u16-lut"),
     "gq_dp": ("patolette_tpu_torch/csrc/gq_dp.cu",
-              "patolette_tpu/models/global_q.py:205", "one-shot"),
+              "patolette_tpu/models/global_q.py:205", "u8-lut"),
 }
 
 
@@ -4056,6 +4270,7 @@ def main():
     launches["one-shot"], launches["one-shot-default"] = phase_e2e_one_shot(
         torch, profile=profile)
     phase_api(torch)
+    launches["image-fused-lut"] = phase_e2e_image_fused_lut(torch)
     img_100mp, launches["u16-lut"], mse_headline = phase_e2e_headline(
         torch, peak_u8)
     launches["strip-dither"] = phase_e2e_strip_dither(torch, profile=profile)

@@ -1,62 +1,80 @@
 """Quantization pipeline: the public ``quantize`` API of the port.
 
-Five routes, chosen as the JAX package's ``_quantize_body`` chooses them:
+Its routes, chosen as the JAX package's ``_quantize_body`` chooses them
+(pipeline.py:1003-1161), its environment flags included:
 
-* **Sampled** (``_quantize_via_samples``, the JAX staged variant): uint8
-  undithered images without saliency of at least 4 MP, and every
-  ``palette_only`` call without saliency. Only the host-drawn palette
-  samples go to the device (``_draw_palette_samples``, the JAX package's
-  exact draws including the S11 reuse); GQ (K1 moments + host f64 DP) ->
-  LQ (K2 with K1) -> KMeans (K4) run on them; the map is K5's 24-bit table
-  over the ICtCp grid, pulled raw and resolved on the host
-  (``ops/lut.py``). Nothing of size N is on the device, so the device
-  budget does not bound these calls.
+* **Sampled** (``_quantize_via_samples``): uint8 undithered images
+  without saliency of at least 4 MP, and every ``palette_only`` call
+  without saliency. Only the host-drawn palette samples go to the device
+  (``_draw_palette_samples``, the JAX package's exact draws including the
+  S11 reuse). A mapped call of at most 256 colours runs the fused program
+  (``_sample_lut_program``, the JAX package's): K10 to the working space,
+  the palette core (K1, the GQ DP on the device (K11), K2, K4), the sRGB
+  pack, K5's u8 table over the cached ICtCp grid and its v2 encoding
+  (K6), with nothing read back until the pack and the table's words come
+  back; on v2's overflow the table comes back as v1 words or raw. Under
+  ``PATOLETTE_NO_FUSED_LUT``, for ``palette_only`` and for u16 tables it
+  runs staged, as the JAX package does: GQ with the DP on the host in f64,
+  LQ, KMeans, then ``LUT.pull_lut``. The host resolves every pixel through
+  the table (``ops/lut.py``). Nothing of size N is on the device, so the
+  device budget does not bound these calls.
 * **Streamed** (``_quantize_streamed``, the JAX package's): the palette
-  from the same samples, then the map per row strip with one strip on the
-  device at a time: upload, K10, then K3 (undithered) or K7 + K8 (dither,
-  each strip with its own curve and a fresh error queue at its seam).
-  Dithered calls without saliency above 4 MP take it, and so does any
-  call without saliency whose resident footprint exceeds the device
-  budget or that runs out of device memory on the resident route.
+  from the same samples by the fused program without the table
+  (``_sample_palette_program``), then the map per row strip with one
+  strip on the device at a time: upload, K10, then K3 (undithered) or K7
+  + K8 (dither, each strip with its own curve and a fresh error queue at
+  its seam). Dithered calls without saliency above 4 MP take it (unless
+  ``PATOLETTE_NO_STRIP_DITHER`` is set), and so does any call without
+  saliency whose resident footprint exceeds the device budget or that
+  runs out of device memory on the resident route.
+* **Full-image fused LUT** (``_quantize_image_fused_lut``, the JAX
+  package's; opt-in under ``PATOLETTE_FUSED_IMAGE_LUT=1``): uint8
+  undithered calls of at most 256 colours and at least 4 MP off the
+  sampled route (saliency or explicit weights), within the device budget.
+  The image goes up, then saliency (K9), K10, the palette core with its
+  device draws, the pack, K5 and K6, and the pulls of the sampled fused
+  program.
 * **One-shot** (``_quantize_one_shot``, the JAX package's): images of at
-  most ``ONE_SHOT_MAX_PIXELS`` (4 MP) off the sampled, sharded and
-  streamed routes, unless ``PATOLETTE_NO_ONE_SHOT`` is set. The image goes up, then saliency (K9),
+  most ``ONE_SHOT_MAX_PIXELS`` (4 MP) off the routes above, unless
+  ``PATOLETTE_NO_ONE_SHOT`` is set. The image goes up, then saliency (K9),
   K10 to the working space and the palette core (``_palette_core``:
-  device draws, K1 moments, the GQ DP on the device (K11), LQ with its
-  control on the device (K2 with K1), centres, KMeans (K4)), then the
-  dither (K7, K8) or the direct map (K3); nothing is read back until the
-  palette and the map come back together at the end.
-  ``palette_pipeline_device`` is the same core as a function of tensors.
+  device draws, K1 moments, K11, LQ with its control on the device (K2
+  with K1), centres, KMeans (K4)), then the dither (K7, K8) or the direct
+  map (K3); nothing is read back until the palette and the map come back
+  together at the end. ``palette_pipeline_device`` is the same core as a
+  function of tensors.
 * **Resident** (``_quantize_resident``, modelled on
   ``_quantize_full_upload``; above 4 MP, or under
   ``PATOLETTE_NO_ONE_SHOT``): sRGB -> weights (explicit, else MBD saliency
   with K9 when ``tile_size > 0``) -> working space -> LQ sample draw -> GQ
-  -> LQ -> centres (K1) -> KMeans (K4) -> Riemersma dither (K7 curve
-  order, K8 scan) or the ICtCp direct map (K3) -> sRGB palette with
-  [-1, -1, -1] fill. The image goes up as it is (uint8 as bytes) and K10
-  turns it into three planar f32 channels of the working space, which
-  stay on the device. The JAX package maps uint8 undithered images of at
-  least 4 MP on this route through its 24-bit table, to spare the index
-  download over its host link; the table equals the direct map, so the
-  port keeps K3.
-
-The staged routes draw their samples on the host from
-``np.random.default_rng(seed)``. The resident route's LQ draw is the JAX
-package's exact draw; its KMeans draw follows from the same ``rng`` where
-the JAX package draws with ``jax.random`` (README divergence T1). The
-one-shot route draws on the device from ``torch.Generator``s seeded from
-``(seed, stream)`` where the JAX package draws with ``jax.random`` from
-its key folded the same way (README T6).
-
-* **Sharded** (``_quantize_sharded``, the JAX package's): with
-  ``mesh=`` (``parallel/mesh.py``), when the pixels (and, for a dither,
-  the rows) divide over the ranks. Each rank holds a contiguous row strip;
-  saliency and the dither run per strip; the palette search runs on each
-  rank's own host-drawn samples with every sum reduced over the ranks;
-  the map is K10 + K3 per strip, or, for uint8 undithered calls of at
+  (the host f64 DP, as the JAX package's staged route) -> LQ -> centres
+  (K1) -> KMeans (K4) -> Riemersma dither (K7 curve order, K8 scan) or the
+  ICtCp direct map (K3) -> sRGB palette with [-1, -1, -1] fill. The image
+  goes up as it is (uint8 as bytes) and K10 turns it into three planar f32
+  channels of the working space, which stay on the device. The JAX
+  package maps uint8 undithered images of at least 4 MP on this route
+  through its 24-bit table, to spare the index download over its host
+  link; the table equals the direct map, so the port keeps K3.
+* **Sharded** (``_quantize_sharded``, the JAX package's): with ``mesh=``
+  (``parallel/mesh.py``), when the pixels (and, for a dither, the rows)
+  divide over the ranks. Each rank holds a contiguous row strip on its
+  device; saliency and the dither run per strip; the palette is
+  ``PM.quantize_palette_sharded`` on the strips: the palette core with
+  every sum reduced over the ranks and K11 on the reduced moments; the map
+  is that program's K3 per strip, or, for uint8 undithered calls of at
   least 4 MP, the 24-bit table built in slices (K5 and K6 per rank) and
   resolved on every rank's host. ``parallel/distributed.py`` gives the
   same route one call per process on the rank's rows alone.
+
+Draws: the sampled and streamed routes draw their samples on the host from
+``np.random.default_rng(seed)``, as the JAX package does. The resident
+route's LQ draw is the JAX package's exact draw; its KMeans draw follows
+from the same ``rng`` where the JAX package draws with ``jax.random``
+(README divergence T1). The one-shot, full-image LUT and sharded routes
+draw on the device from ``torch.Generator``s seeded from ``(seed,
+stream)`` (``(seed, rank, stream)`` on the mesh) where the JAX package
+draws with ``jax.random`` from its key folded the same way (README T5,
+T6).
 
 Over the device budget, calls with saliency or with ``lq_max_samples=0``
 fail typed, as in the JAX package; the sharded route has no budget check,
@@ -74,6 +92,7 @@ import numpy as np
 import torch
 
 from patolette_tpu_torch.kernels.colorspace import color_convert
+from patolette_tpu_torch.kernels.rle import buffer_words, rle_encode_u8_v2
 from patolette_tpu_torch.models import dither as DITH
 from patolette_tpu_torch.models import global_q as GQ
 from patolette_tpu_torch.models import kmeans as KM
@@ -125,6 +144,14 @@ BYTES_PER_PIXEL_SALIENCY_OR_DITHER = 103
 # beside the resident route's planes).
 ONE_SHOT_BYTES_PER_PIXEL = 34
 ONE_SHOT_BYTES_PER_PIXEL_SALIENCY_OR_DITHER = 108
+# The opt-in full-image fused LUT route (PATOLETTE_FUSED_IMAGE_LUT=1),
+# measured the same way over its 3840x2160 uint8 call with saliency
+# (chip_smoke.py's e2e-image-fused-lut, the same card): 102.5 bytes a pixel
+# above the grid, the table and its words, which do not grow with N (the
+# saliency planes, then the palette core's beside the uploaded bytes).
+IMAGE_LUT_BYTES_PER_PIXEL = 103
+IMAGE_LUT_FIXED_BYTES = (3 * 4 + 1) * LUT.LUT_SIZE + 2 * buffer_words(
+    LUT.LUT_SIZE)
 DEVICE_BUDGET_FRACTION = 0.8
 
 # The JAX package's thresholds of the sampled route (pipeline.py:210-217).
@@ -252,19 +279,56 @@ def _finish_palette(palette_work, valid, p, csp):
                          valid.cpu().numpy(), p)
 
 
-def _put(colors, device):
+def _put(colors, device, non_blocking=False):
     """(N, 3) host pixels -> the same (N, 3) on the device, uint8 as bytes,
     anything else as f32. K10 normalises and de-interleaves them as it
-    converts them."""
-    if colors.dtype == np.uint8:
-        return torch.from_numpy(np.ascontiguousarray(colors)).to(device)
-    return torch.from_numpy(
-        np.ascontiguousarray(colors, dtype=np.float32)).to(device)
+    converts them. ``non_blocking``: the copy is queued on the stream and
+    the host goes on (the source is staged before the call returns)."""
+    if colors.dtype != np.uint8:
+        colors = np.asarray(colors, dtype=np.float32)
+    return torch.from_numpy(np.ascontiguousarray(colors)).to(
+        device, non_blocking=non_blocking)
 
 
-def _put_weights(w_host, device):
+def _put_weights(w_host, device, non_blocking=False):
     return None if w_host is None else torch.from_numpy(
-        np.ascontiguousarray(w_host, dtype=np.float32)).to(device)
+        np.ascontiguousarray(w_host, dtype=np.float32)).to(
+            device, non_blocking=non_blocking)
+
+
+def _start_host_copy(t):
+    """Start ``t``'s copy to the host without waiting: into pinned memory,
+    queued on the current stream behind the work that makes ``t``. Returns
+    the handle :func:`_host_copy_done` waits on."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _host_copy_done(copy) -> np.ndarray:
+    host, done = copy
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
+def _palette_pack(centers, valid, csp):
+    """The sRGB palette and its valid flags in one f32 vector, ``[3p sRGB
+    | p valid]``, the JAX device programs' pack: one small copy back."""
+    return torch.cat([cs.working_to_srgb(centers, csp).reshape(-1),
+                      valid.to(torch.float32)])
+
+
+def _unpack_palette(pack_np, p):
+    """A pack (:func:`_palette_pack`) on the host -> the (p, 3) f64 palette
+    with the [-1, -1, -1] fill and the (p,) valid flags (the JAX package's
+    ``_unpack_palette``)."""
+    valid = pack_np[3 * p:4 * p] > 0.5
+    return _fill_palette(pack_np[:3 * p].reshape(p, 3), valid, p), valid
 
 
 def _device_budget(device):
@@ -415,7 +479,8 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
     # (pipeline.py:1042-1081): large dithered calls without saliency, then
     # whatever exceeds the device budget ---
     if dither and not saliency and n > STRIP_DITHER_MIN_PIXELS \
-            and lq_max_samples:
+            and lq_max_samples \
+            and not os.environ.get("PATOLETTE_NO_STRIP_DITHER"):
         return _quantize_streamed(colors, p, **geometry, **kw)
     one_shot = n <= ONE_SHOT_MAX_PIXELS and not os.environ.get(
         "PATOLETTE_NO_ONE_SHOT")
@@ -437,6 +502,18 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
                 "palette search; set lq_max_samples"
             )
         return _quantize_streamed(colors, p, **geometry, **kw)
+
+    # --- the opt-in full-image fused LUT route (pipeline.py:1083-1103):
+    # uint8 undithered calls of at most 256 colours off the sampled route
+    # (saliency or explicit weights), within the device budget ---
+    if (not palette_only and lut_eligible and p <= 256
+            and n >= _lut_min_pixels(p)
+            and _image_lut_bytes(n) <= _device_budget(device)
+            and os.environ.get("PATOLETTE_FUSED_IMAGE_LUT") == "1"
+            and not os.environ.get("PATOLETTE_NO_FUSED_LUT")):
+        return _quantize_image_fused_lut(
+            colors, p, width=int(width), height=int(height),
+            tile_size=float(tile_size), **kw)
 
     # --- the one-shot route (pipeline.py:1105-1117), else the resident
     # route, with the JAX package's net for a device OOM (pipeline.py:
@@ -466,14 +543,15 @@ def _quantize_body(width, height, colors, palette_size, *, dither,
 
 def _draw_palette_samples(colors, n, w_host, rng, p, lq_max_samples,
                           kmeans_niter, kmeans_max_samples, device):
-    """Host-side LQ + KMeans sample draws, uploaded and normalised.
+    """Host-side LQ + KMeans sample draws, uploaded without waiting.
 
     The JAX package's ``_draw_palette_samples`` (pipeline.py:243-290) draw
     for draw: the LQ draw, then a KMeans draw when n exceeds the KMeans cap
     unless the LQ sample can stand in for it (S11: unweighted, and the LQ
     sample already has the cap's size), weights gathered by the same
-    indices. Returns ``(x_lq, w_lq, x_km, w_km)``: (M, 3) f32 sRGB
-    samples and (M,) f32 weights on the device, ``x_km`` None under S11.
+    indices. Returns ``(x_lq, w_lq, x_km, w_km)``: (M, 3) sRGB samples (raw
+    uint8 or f32) and (M,) f32 weights on the device, ``x_km`` None under
+    S11.
     """
     if lq_max_samples and n > lq_max_samples:
         idx = rng.integers(0, n, size=int(lq_max_samples))
@@ -492,26 +570,115 @@ def _draw_palette_samples(colors, n, w_host, rng, p, lq_max_samples,
             sub_km_h, w_km_h = colors, w_host
         # else: KMeans reuses the LQ sample (S11)
 
-    x_km = None if sub_km_h is None else _put(sub_km_h, device)
-    return (_put(sub, device), _put_weights(w_lq_h, device), x_km,
-            _put_weights(w_km_h, device))
+    def up(x):
+        return None if x is None else _put(x, device, non_blocking=True)
+
+    return (up(sub), _put_weights(w_lq_h, device, non_blocking=True),
+            up(sub_km_h), _put_weights(w_km_h, device, non_blocking=True))
+
+
+def _upload_samples(colors, p, *, weights, seed, lq_max_samples,
+                    kmeans_niter, kmeans_max_samples, device):
+    """The sampled and streamed routes' draws from
+    ``np.random.default_rng(seed)``, on the device."""
+    w_host = (None if weights is None
+              else np.asarray(weights, np.float32).reshape(-1))
+    return _draw_palette_samples(
+        colors, colors.shape[0], w_host, np.random.default_rng(seed), p,
+        lq_max_samples, kmeans_niter, kmeans_max_samples, device)
+
+
+def _palette_program(x_lq, w_lq, x_km, w_km, *, p, csp, kmeans_niter,
+                     kmeans_max_samples, seed, lq_batch_splits):
+    """The palette core on working-space samples, no draw of its own
+    (``lq_max_samples`` 0; ``x_km`` None: KMeans runs on ``x_lq``, which
+    then holds at most the KMeans cap, S11), then the pack. Returns
+    ``(centers, valid, pack)`` on the device; nothing is read back."""
+    centers, valid = _palette_core(
+        x_lq, w_lq, p, kmeans_niter, kmeans_max_samples, seed, None,
+        max(1, int(lq_batch_splits)), 0, x_km=x_km, w_km=w_km)
+    return centers, valid, _palette_pack(centers, valid, csp)
+
+
+def _sample_palette_program(x_lq, w_lq, x_km, w_km, *, csp, **kw):
+    """The JAX package's ``_sample_palette_program`` (pipeline.py:302-333):
+    the host-drawn sRGB samples to the working space (K10), then
+    :func:`_palette_program`: K1, K11, K2 and K4 with no host read."""
+    def work(x):
+        return None if x is None else cs.srgb_to_working(x, csp)
+
+    return _palette_program(work(x_lq), w_lq, work(x_km), w_km, csp=csp,
+                            **kw)
+
+
+def _lut_program(centers, valid, csp):
+    """The u8 table of a palette of at most 256 entries over the cached
+    grid (K5) and its v2 encoding (K6). Returns ``(table, enc)``."""
+    table = LUT.build_lut_device(centers, valid, csp, torch.uint8)
+    return table, rle_encode_u8_v2(table)
+
+
+def _sample_lut_program(x_lq, w_lq, x_km, w_km, *, csp, **kw):
+    """The JAX package's ``_sample_lut_program`` (pipeline.py:340-373):
+    :func:`_sample_palette_program`, then :func:`_lut_program`. Returns
+    ``(pack, table, enc)``; nothing is read back."""
+    centers, valid, pack = _sample_palette_program(x_lq, w_lq, x_km, w_km,
+                                                   csp=csp, **kw)
+    return (pack, *_lut_program(centers, valid, csp))
+
+
+def _pull_lut_program(colors, p, pack, table, enc, timer):
+    """The two pulls of a fused LUT program and the host map (JAX
+    ``pipeline.py:438-449``): the pack's copy starts first, then the v2
+    words come back; on v2's overflow the table goes straight to v1 or a
+    raw copy. Laps ``lut-pull`` and ``lut-map-host``."""
+    pack = _start_host_copy(pack)
+    lut = LUT.pull_encoded_v2(enc)
+    if lut is None:
+        lut = LUT.pull_lut(table, try_v2=False)
+    timer.lap("lut-pull")
+    palette_map = LUT.lut_map_host(colors, lut)
+    timer.lap("lut-map-host")
+    palette, _ = _unpack_palette(_host_copy_done(pack), p)
+    return True, palette, palette_map, errors.exit_code_message(
+        errors.ExitCode.SUCCESS
+    )
+
+
+def _quantize_via_samples_fused(colors, p, *, csp, kmeans_niter,
+                                kmeans_max_samples, verbose, weights,
+                                lq_max_samples, lq_batch_splits, seed,
+                                device, timer):
+    """The fused sampled LUT route (the JAX package's
+    ``_quantize_via_samples_fused``, pipeline.py:452-493): the samples go
+    up, :func:`_sample_lut_program` runs, two pulls come back. Laps
+    ``sample-in``, ``palette+lut-build`` (the host's enqueue unless
+    synced), ``lut-pull``, ``lut-map-host``."""
+    samples = _upload_samples(
+        colors, p, weights=weights, seed=seed, lq_max_samples=lq_max_samples,
+        kmeans_niter=kmeans_niter, kmeans_max_samples=kmeans_max_samples,
+        device=device)
+    timer.lap("sample-in")
+    _log(verbose, "Palette + LUT (fused device program)")
+    pack, table, enc = _sample_lut_program(
+        *samples, p=p, csp=csp, kmeans_niter=kmeans_niter,
+        kmeans_max_samples=kmeans_max_samples, seed=seed,
+        lq_batch_splits=lq_batch_splits)
+    del samples
+    timer.lap("palette+lut-build")
+    return _pull_lut_program(colors, p, pack, table, enc, timer)
 
 
 def _sample_palette(colors, p, *, csp, kmeans_niter, kmeans_max_samples,
                     verbose, weights, lq_max_samples, lq_batch_splits, seed,
                     device, timer):
-    """Palette search on the host-drawn samples alone: the draws of
-    :func:`_draw_palette_samples`, GQ/LQ, KMeans. Returns the (p, 3)
-    working-space centres and their (p,) valid flags on the device."""
-    n = colors.shape[0]
-    rng = np.random.default_rng(seed)
-    w_host = (None if weights is None
-              else np.asarray(weights, np.float32).reshape(-1))
-
-    x_lq, w_lq, x_km, w_km = _draw_palette_samples(
-        colors, n, w_host, rng, p, lq_max_samples, kmeans_niter,
-        kmeans_max_samples, device,
-    )
+    """The staged palette search on the host-drawn samples: GQ with its
+    DP on the host in f64, LQ, KMeans. Returns the (p, 3) working-space
+    centres and their (p,) valid flags on the device."""
+    x_lq, w_lq, x_km, w_km = _upload_samples(
+        colors, p, weights=weights, seed=seed, lq_max_samples=lq_max_samples,
+        kmeans_niter=kmeans_niter, kmeans_max_samples=kmeans_max_samples,
+        device=device)
     x_lq = cs.srgb_to_working(x_lq, csp)
     timer.lap("sample-in")
 
@@ -542,19 +709,25 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
     for GQ/LQ; the reference's own KMeans cap, refine.c:87), so only those
     go to the device. The palette map of a uint8 image factors through the
     2^24 possible colours (``ops/lut.py``): K5 builds one table, it comes
-    back run-length encoded (K6 and the host decode, ``LUT.pull_lut``),
-    and the host resolves every pixel. The JAX package's staged variant
-    (pipeline.py:563-614); its single-program variant is not ported
-    (README divergence T3).
-    """
-    centers, valid = _sample_palette(
-        colors, p, csp=csp, kmeans_niter=kmeans_niter,
-        kmeans_max_samples=kmeans_max_samples, verbose=verbose,
-        weights=weights, lq_max_samples=lq_max_samples,
-        lq_batch_splits=lq_batch_splits, seed=seed, device=device,
-        timer=timer,
-    )
+    back run-length encoded (K6 and the host decode), and the host
+    resolves every pixel.
 
+    As in the JAX package (pipeline.py:551-561), a mapped call of at most
+    256 colours runs the fused program (:func:`_quantize_via_samples_fused`)
+    unless ``PATOLETTE_NO_FUSED_LUT`` is set; the rest (``palette_only``,
+    u16 tables) run staged: GQ with the host f64 DP, LQ, KMeans, then
+    ``LUT.pull_lut`` (the JAX package's pipeline.py:563-614).
+    """
+    kw = dict(csp=csp, kmeans_niter=kmeans_niter,
+              kmeans_max_samples=kmeans_max_samples, verbose=verbose,
+              weights=weights, lq_max_samples=lq_max_samples,
+              lq_batch_splits=lq_batch_splits, seed=seed, device=device,
+              timer=timer)
+    if (not palette_only and p <= 256
+            and not os.environ.get("PATOLETTE_NO_FUSED_LUT")):
+        return _quantize_via_samples_fused(colors, p, **kw)
+
+    centers, valid = _sample_palette(colors, p, **kw)
     palette_map = None
     if not palette_only:
         _log(verbose, "NN mapping (24-bit LUT)")
@@ -595,25 +768,28 @@ def _quantize_streamed(colors, p, *, width, height, dither, dither_segment,
                        seed, device, timer):
     """The palette from samples, then the map per row strip with one strip
     on the device at a time (the JAX package's ``_quantize_streamed``,
-    pipeline.py:657-766). Each strip of ``_stream_strip_pixels(n) //
-    width`` rows goes up as it is, is mapped, and its map comes back into
-    the host array before the next one goes up, so device memory does not
-    grow with N. Seams: the undithered map is per pixel and exact; the
-    dither runs each strip along its own curve with a fresh error queue.
-
-    The palette is the staged one of the sampled route (host f64 GQ DP);
-    the JAX package's streamed route runs its f32 device DP (README
-    divergence T3).
+    pipeline.py:657-766). The palette is :func:`_sample_palette_program`
+    on the host-drawn samples (lap ``palette (device)``), its pack copied
+    back behind it. Each strip of ``_stream_strip_pixels(n) // width``
+    rows goes up as it is, is mapped, and its map comes back into the host
+    array before the next one goes up, so device memory does not grow with
+    N. Seams: the undithered map is per pixel and exact; the dither runs
+    each strip along its own curve with a fresh error queue.
     """
     n = width * height
     _log(verbose, f"Streamed route: {n / 1e6:.1f} MP")
-    centers, valid = _sample_palette(
-        colors, p, csp=csp, kmeans_niter=kmeans_niter,
-        kmeans_max_samples=kmeans_max_samples, verbose=verbose,
-        weights=weights, lq_max_samples=lq_max_samples,
-        lq_batch_splits=lq_batch_splits, seed=seed, device=device,
-        timer=timer,
-    )
+    samples = _upload_samples(
+        colors, p, weights=weights, seed=seed, lq_max_samples=lq_max_samples,
+        kmeans_niter=kmeans_niter, kmeans_max_samples=kmeans_max_samples,
+        device=device)
+    timer.lap("sample-in")
+    centers, valid, pack = _sample_palette_program(
+        *samples, p=p, csp=csp, kmeans_niter=kmeans_niter,
+        kmeans_max_samples=kmeans_max_samples, seed=seed,
+        lq_batch_splits=lq_batch_splits)
+    del samples
+    pack = _start_host_copy(pack)
+    timer.lap("palette (device)")
 
     palette_map = None
     if not palette_only:
@@ -632,7 +808,7 @@ def _quantize_streamed(colors, p, *, width, height, dither, dither_segment,
             del pm
             timer.lap(mode)
 
-    palette = _finish_palette(centers, valid, p, csp)
+    palette, _ = _unpack_palette(_host_copy_done(pack), p)
     timer.lap("palette-out")
     return True, palette, palette_map, errors.exit_code_message(
         errors.ExitCode.SUCCESS
@@ -797,10 +973,10 @@ def palette_pipeline_device(colors, weights, palette_size: int,
     csp = int(color_space)
     if isinstance(colors, (tuple, list)):
         x = tuple(on_device(ch, dev) for ch in colors)
-        if x[0].dtype == torch.uint8:
-            x = tuple(ch.to(torch.float32) * cs._f32(1.0 / 255.0)
-                      for ch in x)
-        x = tuple(cs.srgb_to_working(x, csp))
+        if x[0].dtype == torch.uint8:  # (N, 3) bytes: K10's byte path
+            x = color_convert(torch.stack(x, dim=1), csp, "working")
+        else:
+            x = tuple(cs.srgb_to_working(x, csp))
         planar = x
     else:
         x = cs.srgb_to_working(on_device(colors, dev), csp)
@@ -866,6 +1042,64 @@ def _quantize_one_shot(colors, p, *, width, height, palette_only, dither,
     )
 
 
+def _image_lut_program(x, w, *, width, height, p, csp, tile_size,
+                       kmeans_niter, kmeans_max_samples, seed,
+                       lq_max_samples, lq_batch_splits):
+    """The JAX package's ``_image_lut_program`` (pipeline.py:380-411) on
+    the uploaded (N, 3) image ``x`` (uint8 bytes): saliency weights (K9)
+    when ``w`` is None and ``tile_size > 0``, K10 to the working space, the
+    palette core with its device draws, the pack, then
+    :func:`_lut_program`. The same front as the one-shot route
+    (:func:`_working_image`), so the palette is that route's. Returns
+    ``(pack, table, enc)``; nothing is read back."""
+    if w is None and tile_size > 0:
+        xp_srgb = color_convert(x, 0, "working")
+        w = SAL.get_weights_planar(xp_srgb, height, width, tile_size)
+        xw = tuple(cs.srgb_to_working(xp_srgb, csp))
+        del xp_srgb
+    else:
+        xw = color_convert(x, csp, "working")
+    centers, valid = _palette_core(
+        xw, w, p, kmeans_niter, kmeans_max_samples, seed, None,
+        max(1, int(lq_batch_splits)), lq_max_samples)
+    del xw, w
+    return (_palette_pack(centers, valid, csp),
+            *_lut_program(centers, valid, csp))
+
+
+def _image_lut_bytes(n: int) -> int:
+    """The fused image LUT route's device footprint model: the measured
+    bytes a pixel and the grid, table and encoding, whatever N."""
+    return n * IMAGE_LUT_BYTES_PER_PIXEL + IMAGE_LUT_FIXED_BYTES
+
+
+def _quantize_image_fused_lut(colors, p, *, width, height, tile_size,
+                              palette_only, csp, kmeans_niter,
+                              kmeans_max_samples, verbose, weights,
+                              lq_max_samples, lq_batch_splits, seed, device,
+                              timer):
+    """The opt-in full-image fused LUT route (the JAX package's
+    ``_quantize_image_fused_lut``, pipeline.py:414-449), for mapped
+    (``palette_only`` False), undithered calls: the image goes up (lap
+    ``stage-in``), :func:`_image_lut_program` runs (lap
+    ``saliency+palette+lut-build``), then the pulls and the host map of the
+    sampled fused route."""
+    x = _put(colors, device)
+    w = (None if weights is None else
+         _put_weights(np.asarray(weights).reshape(-1), device))
+    timer.lap("stage-in")
+    _log(verbose, "Saliency + palette + LUT (fused device program)")
+    pack, table, enc = _image_lut_program(
+        x, w, width=width, height=height, p=p, csp=csp,
+        tile_size=tile_size if weights is None else 0.0,
+        kmeans_niter=kmeans_niter, kmeans_max_samples=kmeans_max_samples,
+        seed=seed, lq_max_samples=lq_max_samples,
+        lq_batch_splits=lq_batch_splits)
+    del x, w
+    timer.lap("saliency+palette+lut-build")
+    return _pull_lut_program(colors, p, pack, table, enc, timer)
+
+
 def _gather_rows(mesh, rows):
     """Every rank's (n_local, 3) rows in rank order, on every host (exact:
     uint8 travels as int32)."""
@@ -885,15 +1119,15 @@ def _quantize_sharded(colors, p, mesh, *, width, height, dither,
     the whole image, or with ``local`` only this rank's rows; the map
     returned is the whole image's, or with ``local`` this rank's rows.
 
-    Stages, with the JAX package's laps: ``stage-in`` (the strip goes up
-    where saliency, the dither or the direct map need it), ``saliency``
-    (per strip; the whole image's below a strip height of 4),
-    ``palette (sharded)`` (host draws per rank of ``ceil(cap / world)``
-    samples with replacement from the rank's rows, from a generator seeded
-    by ``(seed, rank)``; GQ moments, LQ sums, centres and KMeans sums
-    reduced over the ranks; the GQ DP on the host in f64 on every rank),
-    ``dither`` or ``nn-map``. The JAX package draws on the device with
-    ``jax.random`` and runs its f32 device DP here (README T5).
+    Stages, with the JAX package's laps: ``stage-in`` (the rank's row
+    strip goes up as it is, uint8 as bytes), ``saliency`` (per strip; the
+    whole image's below a strip height of 4), ``palette (sharded)``
+    (``PM.quantize_palette_sharded``: the palette core on the strip with
+    every sum reduced over the ranks, each rank drawing its share of the
+    caps on the device from ``(seed, rank)``, K11 on the reduced moments;
+    with the direct map when neither the dither nor the 24-bit table
+    maps), ``dither`` or ``nn-map``. ``lq_batch_splits`` is the factory's,
+    as in the JAX package.
     """
     n = width * height
     lo, hi = PM.shard_range(n, mesh)
@@ -908,17 +1142,15 @@ def _quantize_sharded(colors, p, mesh, *, width, height, dither,
                  and colors.dtype == np.uint8 and p <= 256
                  and n >= _lut_min_pixels(p)
                  and LUT.LUT_SIZE % mesh.world == 0)
-    need_strip = ((saliency and strip_h > 3)
-                  or (not palette_only and not lut_route))
-    strip = _put(rows, device) if need_strip else None
+    chans = _put(rows, device).unbind(1)
+    w_dev = _put_weights(w_host, device)
     timer.lap("stage-in")
 
-    w_dev = None
     if saliency:
         if strip_h > 3:
             _log(verbose, "Generating saliency map (per-strip)")
             w_dev = PM.saliency_sharded(mesh, width, strip_h, tile_size,
-                                        n)(strip.unbind(1))
+                                        n)(chans)
         elif height > 3 and width > 3:
             _log(verbose, "Generating saliency map (replicated)")
             full = _gather_rows(mesh, rows) if local else colors
@@ -929,54 +1161,14 @@ def _quantize_sharded(colors, p, mesh, *, width, height, dither,
         timer.lap("saliency")
 
     _log(verbose, "Palette generation (sharded)")
-    n_local = rows.shape[0]
-    rng = np.random.default_rng((int(seed), mesh.rank))
-
-    def draw(cap):
-        cap = PM.per_rank_cap(cap, mesh)
-        return None if not cap or n_local <= cap else rng.integers(
-            0, n_local, size=cap)
-
-    idx_lq = draw(lq_max_samples)
-    idx_km = (draw(KM.subsample_cap(p, kmeans_max_samples))
-              if kmeans_niter > 0 else None)
-    every = {}
-
-    def samples(idx):
-        """Working-space (M, 3) samples and their weights on the device:
-        the rows at ``idx``, or all of them."""
-        if idx is None and "all" in every:
-            return every["all"]
-        if idx is None:
-            x = strip if strip is not None else _put(rows, device)
-        else:
-            x = _put(rows[idx], device)
-        x = torch.stack(color_convert(x, csp, "working"), dim=-1)
-        if w_dev is not None:
-            w = w_dev if idx is None else w_dev[
-                torch.from_numpy(idx).to(device)]
-        else:
-            w = _put_weights(
-                None if w_host is None else
-                (w_host if idx is None else w_host[idx]), device)
-        if idx is None:
-            every["all"] = (x, w)
-        return x, w
-
-    x_lq, w_lq = samples(idx_lq)
-    buckets, bm = _gq_bucket_stage(x_lq, mesh)
-    cuts = GQ.gq_host(bm.to(torch.float64).cpu().numpy(), p)
-    k0 = len(cuts) - 1
-    _log(verbose, f"Base cluster count: {k0}")
-    _, _, centers, valid = _lq_stage(x_lq, w_lq, buckets, cuts, k0, p,
-                                     max(1, int(lq_batch_splits)), mesh)
-    del x_lq, w_lq, buckets
-    if kmeans_niter > 0:
-        x_km, w_km = samples(idx_km)
-        centers = KM.lloyd_iterations(x_km, w_km, centers, valid,
-                                      kmeans_niter, mesh=mesh)
-        del x_km, w_km
-    every.clear()
+    with_map = not palette_only and not dither and not lut_route
+    out = PM.quantize_palette_sharded(
+        mesh, p, color_space=csp, kmeans_niter=kmeans_niter,
+        kmeans_max_samples=kmeans_max_samples, seed=seed,
+        lq_max_samples=lq_max_samples, planar=True, with_map=with_map,
+    )(chans, w_dev)
+    centers, valid = out[0], out[1]
+    del w_dev
     timer.lap("palette (sharded)")
 
     palette_map = None
@@ -992,12 +1184,10 @@ def _quantize_sharded(colors, p, mesh, *, width, height, dither,
                 _log(verbose, "Dithering (per-strip)")
                 pm = PM.dither_sharded(mesh, width, height, csp,
                                        dither_segment, planar=True)(
-                    strip.unbind(1), centers, valid)
+                    chans, centers, valid)
             else:
-                _log(verbose, "NN mapping")
-                pm = assign_planar(color_convert(strip, csp, "ictcp"),
-                                   cs.working_to_ictcp(centers, csp), valid)
-            del strip
+                pm = out[2]
+            del out, chans
             palette_map = (pm if local else PM.gather(mesh, pm)).cpu().numpy()
         timer.lap("dither" if dither else "nn-map")
 

@@ -225,20 +225,23 @@ def pull_words_u16_v2(enc) -> np.ndarray | None:
     return enc[2:2 + count].cpu().numpy()
 
 
-def pull_lut(table) -> np.ndarray:
+def pull_lut(table, try_v2: bool = True) -> np.ndarray:
     """The table on the host, through the run-length formats (the JAX
-    package's ``pull_lut``, in its order and on its flags): a u8 table
-    tries v2, then v1, then a raw copy; a u16 table tries u16 v2, then a
-    raw copy."""
+    package's ``pull_lut``, ``lut.py:391-417``, in its order and on its
+    flags): a u8 table tries v2, then v1, then a raw copy; a u16 table
+    tries u16 v2, then a raw copy. ``try_v2=False`` skips the v2 attempt
+    (a u8 table goes straight to v1, a u16 table to the raw copy): the
+    caller already holds an overflowed v2 encoding of this table."""
     size = table.shape[0]
     if table.dtype == torch.uint16:
-        words = pull_words_u16_v2(rle_encode_u16_v2(table))
+        words = (pull_words_u16_v2(rle_encode_u16_v2(table)) if try_v2
+                 else None)
         if words is None:
             return table.cpu().numpy()
         return rle_decode_u16_v2(words, np.empty((size,), np.uint16))
     if table.dtype != torch.uint8:
         raise TypeError(f"pull_lut: a u8 or u16 table, not {table.dtype}")
-    out = pull_encoded_v2(rle_encode_u8_v2(table), size)
+    out = pull_encoded_v2(rle_encode_u8_v2(table), size) if try_v2 else None
     if out is None:
         out = pull_encoded(rle_encode_u8(table), size)
     if out is None:  # > MAX_RUNS runs: the raw table

@@ -14,7 +14,7 @@ Tolerances:
     package's ``test_sharded_matches_single``): the same number of used
     entries, each within 1e-4 (sums over ranks in another order).
   * with draws, CIELuv MSE ratio port / JAX k-device mesh <= 1.01 (each
-    rank draws from ``(seed, rank)`` on the host; README T5). The held
+    rank draws on the device from ``(seed, rank, stream)``; README T5). The held
     draws are KMeans's (see ``test_torch_mesh.py``); the LQ draws of the
     other case are held by the rank and rows-entry identities.
   * the flat image: the single-device route's map, bit for bit, and its

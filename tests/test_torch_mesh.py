@@ -7,13 +7,15 @@ The port runs the plain versions (``device="cpu"``).
 
 Tolerances:
   * no sample draws (``lq_max_samples=0``, n below the KMeans cap): palette
-    atol 1e-3 and map agreement >= 99.9%: the JAX mesh route runs its f32
-    device GQ DP where the port runs the host f64 DP (README T3, T5), the
-    tolerance of the staged-route tests (``test_torch_lut_route.py``).
+    atol 1e-3 and map agreement >= 99.9%, the tolerance of the
+    staged-route tests (``test_torch_lut_route.py``); both packages run
+    the f32 device GQ DP on the reduced moments here
+    (``test_torch_fused_routes.py`` holds this at 1e-4).
   * with draws: CIELuv MSE ratio port / JAX <= 1.01 (the ranks draw on the
-    host from ``(seed, rank)``; the JAX package with ``jax.random``,
-    README T5). The draws are KMeans's (384x256 pixels over its 65536
-    cap): over seeds the port's MSE there spreads by 0.11% (std), where
+    device from ``(seed, rank, stream)``; the JAX package with
+    ``jax.random``, README T5). The draws are KMeans's (384x256 pixels
+    over its 65536 cap): over seeds the port's MSE there spreads by 0.11%
+    (std, with the host draws the route had before), where
     an LQ draw of a quarter of the pixels spreads by 1.9-2.5%, too much
     for one seed to hold to 1%.
   * uint8: the JAX mesh program folds the byte normalisation into its

@@ -9,9 +9,10 @@ putting the 4 MP threshold of the strip dither at 0 in both, as
 Tolerances:
   * the undithered map decomposes exactly over strips: the port's strips
     equal its resident map for the same palette, bit for bit;
-  * the streamed palette against the JAX package's streamed route, whose
-    palette search runs its f32 device GQ DP where the port runs the host
-    f64 DP (README T3): palette atol 1e-3, map >= 99.9%;
+  * the streamed palette against the JAX package's streamed route (both
+    run the palette program with the f32 device GQ DP on the same host
+    draws; each side converts the samples with its own arithmetic):
+    palette atol 1e-3, map >= 99.9%;
   * the dither against the JAX package's: CIELuv MSE ratio <= 1.01 for the
     whole call (the palettes differ as above); with the same palette, each
     strip's map >= 99.9% equal to JAX's ``riemersma_dither_planar`` /
@@ -76,14 +77,16 @@ def _luv_mse(colors, pal, pmap):
                  .mean())
 
 
-def _palette(colors, **kw):
-    """The streamed route's working-space palette for ``colors``."""
-    opts = dict(csp=2, kmeans_niter=2, kmeans_max_samples=512 ** 2,
-                verbose=False, weights=None, lq_max_samples=1024,
-                lq_batch_splits=8, seed=1234, device=torch.device("cpu"),
-                timer=TP._StageTimer(False, False, torch.device("cpu")))
-    opts.update(kw)
-    return TP._sample_palette(colors, P, **opts)
+def _palette(colors, csp=2):
+    """The streamed route's working-space palette for ``colors``: its
+    palette program on the host-drawn samples."""
+    samples = TP._upload_samples(
+        colors, P, weights=None, seed=1234, lq_max_samples=1024,
+        kmeans_niter=2, kmeans_max_samples=512 ** 2, device="cpu")
+    centers, valid, _ = TP._sample_palette_program(
+        *samples, p=P, csp=csp, kmeans_niter=2, kmeans_max_samples=512 ** 2,
+        seed=1234, lq_batch_splits=8)
+    return centers, valid
 
 
 def _strips(colors):
