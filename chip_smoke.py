@@ -185,6 +185,11 @@ With ``--laps`` it runs only the device, build and laps phases (the
 uint8 LUT call's, the default call's, the headline call's, the 100 MP
 strip dither's and the two 2048x2048 calls' walls and laps, several
 rounds), with ``--root DIR`` too.
+With ``--spans`` it runs only the device, build and spans phases: the
+benchmark cells' three calls, their walls untraced and traced, and from
+the profiler's trace each stage span checked against the laps and what the
+spans hold (the palette core's idle and device time, the LQ loop's
+submissions, the host waits); with ``--root DIR`` too.
 With ``--profile`` the e2e phases (and e2e-mesh-u8) also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
 DIR`` the ptxas report, the profiler tables and every JSON line
@@ -196,6 +201,7 @@ without the package beside it) it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import importlib.util
 import json
 import os
@@ -2217,6 +2223,206 @@ def phase_laps(torch, rounds=LAPS_ROUNDS):
         emit({"phase": "laps", "call": name, "rounds": rounds,
               "package": str(pathlib.Path(pt.__file__).parent.parent), **r,
               "median": {k: statistics.median(v) for k, v in r.items()}})
+
+
+SPAN_CALLS = 6
+# Runtime calls that submit work to the card (a graph launch is one) and
+# runtime calls in which the host waits for it, by name without the CUPTI
+# version or per-thread suffix.
+SUBMITS = frozenset({
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+    "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+    "cudaMemcpy2DAsync", "cudaMemsetAsync", "cuMemcpyAsync",
+    "cuMemcpyHtoDAsync", "cuMemcpyDtoHAsync", "cuMemsetD8Async",
+    "cuMemsetD32Async", "cudaGraphLaunch", "cuGraphLaunch"})
+WAITS = frozenset({"cudaStreamSynchronize", "cudaDeviceSynchronize",
+                   "cudaEventSynchronize", "cudaMemcpy"})
+
+
+def _runtime_name(name):
+    return re.sub(r"(_pt(sz|ds))?(_v\d+)?$", "", name)
+
+
+def span_readings(call, events, laps, core):
+    """The stage spans of one traced call and what they hold, from the
+    profiler's Chrome events (``call``: the call's range; ``events``:
+    (start, end, name, category, correlation) of every event of the
+    trace). ``laps``: the call's lap names in order;
+    ``core``: the laps of the palette core. Returns the readings and a list
+    of what does not hold: one ``patolette/<lap>`` range a lap, in lap
+    order, disjoint, inside the call; one ``patolette/lq-loop`` inside a
+    span of the palette core."""
+    from patolette_tpu_torch.utils.spans import PREFIX
+
+    c0, c1 = call
+
+    def inside(s, iv):
+        return any(a <= s <= b for a, b in iv)
+
+    spans = sorted((s, e, n[len(PREFIX):]) for s, e, n, cat, _ in events
+                   if cat == "user_annotation" and n.startswith(PREFIX)
+                   and c0 <= s <= c1)
+    stages = [x for x in spans if x[2] != "lq-loop"]
+    loops = [(s, e) for s, e, n in spans if n == "lq-loop"]
+    core_iv = [(s, e) for s, e, n in stages if n in core]
+    faults = []
+    if [n for _, _, n in stages] != list(laps):
+        faults.append(f"spans {[n for _, _, n in stages]} != laps {laps}")
+    if any(e > s2 for (_, e, _), (s2, _, _) in zip(stages, stages[1:])) \
+            or any(e > c1 for _, e, _ in stages):
+        faults.append("stage spans overlap or leave the call")
+    if len(loops) != 1 or not any(a <= loops[0][0] and loops[0][1] <= b
+                                  for a, b in core_iv):
+        faults.append(f"lq-loop spans {loops}, palette core {core_iv}")
+    runtime = [(s, _runtime_name(n), corr) for s, e, n, cat, corr in events
+               if cat in ("cuda_runtime", "cuda_driver") and c0 <= s <= c1]
+    device = [(s, e, corr) for s, e, n, cat, corr in events
+              if cat in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sorted((s, e) for s, e, _ in device)
+    idle = 0.0
+    for a, b in core_iv:
+        t = a
+        for s, e in busy:
+            if e <= t or s >= b:
+                continue
+            idle += max(0.0, s - t)
+            t = max(t, min(e, b))
+        idle += max(0.0, b - t)
+    mine = {corr for s, _, corr in runtime if inside(s, core_iv)}
+    work, dev_us, t = sorted((s, e) for s, e, c in device if c in mine), \
+        0.0, float("-inf")
+    for s, e in work:
+        dev_us += max(0.0, e - max(s, t))
+        t = max(t, e)
+    in_loop = collections.Counter(n for s, n, _ in runtime
+                                  if inside(s, loops))
+    launched = {corr for _, _, corr in runtime}
+    return {
+        "palette_idle_ms": idle * 1e-3,
+        "palette_device_ms": dev_us * 1e-3,
+        "lq_launches": sum(v for n, v in in_loop.items() if n in SUBMITS),
+        "host_syncs": sum(n in WAITS for _, n, _ in runtime),
+        "host_syncs_by_lap": dict(collections.Counter(
+            next((n for a, b, n in stages if a <= s <= b), "-")
+            for s, name, _ in runtime if name in WAITS)),
+        "lq_runtime_calls": dict(in_loop.most_common(8)),
+        "runtime_calls": len(runtime),
+        # work that starts in this call but was launched outside it: the
+        # card's timestamps drifting against the host's
+        "device_unmatched": sum(c0 <= s <= c1 and c not in launched
+                                for s, _, c in device),
+    }, faults
+
+
+def _span_cost_us(torch, reps=20000):
+    """Host microseconds of one empty ``span`` with no profiler, and
+    under a profiler with CPU and CUDA activity (the traced pass's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from patolette_tpu_torch.utils.spans import span
+
+    def per_span():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with span("cost-probe"):
+                pass
+        return (time.perf_counter() - t0) * 1e6 / reps
+
+    off = per_span()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = per_span()
+    return {"off": off, "profiled": on}
+
+
+def phase_spans(torch):
+    """The three benchmark cells' calls (the default call at 3840x2160 and
+    2048x2048 float32, the 8-bit export call at 3840x2160 uint8), each
+    warmed, then ``SPAN_CALLS`` calls untimed by the profiler (walls), then,
+    after every cell's, ``SPAN_CALLS`` traced calls a cell under
+    torch.profiler with CPU and CUDA activity: each call's walls, its stage
+    spans checked (``span_readings``) and the palette core's idle and
+    device ms, the LQ loop's submissions and the host waits read from the
+    trace. With ``--root DIR`` on another checkout's package (a parent
+    without spans reads only its waits and walls)."""
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch.models import pipeline
+
+    has_spans = importlib.util.find_spec(
+        "patolette_tpu_torch.utils.spans") is not None
+    core = {"gq-moments", "gq-dp", "lq", "kmeans", "palette",
+            "palette+lut-build", "palette (device)", "palette (sharded)",
+            "palette-out", "saliency+palette+lut-build"}
+    img4k = synth_image_f32(W, H)
+    cells = {
+        "default-4k": (W, H, img4k, {}),
+        "export-4k": (W, H, np.round(img4k * 255.0).astype(np.uint8),
+                      dict(dither=False, tile_size=0, kmeans_niter=25,
+                           color_space=pt.ColorSpace_ICtCp)),
+        "default-2k": (ONE_SHOT_W, ONE_SHOT_H,
+                       synth_image_f32(ONE_SHOT_W, ONE_SHOT_H), {}),
+    }
+
+    def run(name):
+        w, h, colors, kw = cells[name]
+        t0 = time.perf_counter()
+        ok, _, _, msg = pt.quantize(w, h, colors, 256, **kw)
+        wall = (time.perf_counter() - t0) * 1e3
+        check(ok, f"{name} failed: {msg}")
+        return wall, list(pipeline.LAST_STAGE_TIMES)
+
+    out = {name: {"wall_ms": []} for name in cells}
+    for name in cells:
+        run(name)
+        run(name)
+        out[name]["wall_ms"] = [run(name)[0] for _ in range(SPAN_CALLS)]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if has_spans:
+        emit({"phase": "spans-cost", "us_a_span": _span_cost_us(torch)})
+    for name in cells:
+        laps = []
+        with profile(activities=acts) as prof:
+            for i in range(SPAN_CALLS):
+                with record_function(f"spans_call_{i}"):
+                    laps.append(run(name))
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                raw = json.load(f)["traceEvents"]
+        events = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                   e.get("name", ""), e.get("cat", ""),
+                   (e.get("args") or {}).get("correlation"))
+                  for e in raw if e.get("ph") == "X"]
+        calls = sorted((s, e, int(n[len("spans_call_"):]))
+                       for s, e, n, cat, _ in events
+                       if cat == "user_annotation"
+                       and n.startswith("spans_call_"))
+        r = out[name]
+        r["traced_wall_ms"] = [lap[0] for lap in laps]
+        r["traced_range_ms"] = [(e - s) * 1e-3 for s, e, _ in calls]
+        for s, e, i in calls:
+            if has_spans:
+                got, faults = span_readings((s, e), events, laps[i][1],
+                                            core)
+                check(not faults, f"{name} call {i}: {faults}")
+            else:
+                got = {"host_syncs": sum(
+                    _runtime_name(n) in WAITS for s2, _, n, cat, _ in events
+                    if cat == "cuda_runtime" and s <= s2 <= e)}
+            for k, v in got.items():
+                r.setdefault(k, []).append(v)
+        del raw, events, prof
+    for name, r in out.items():
+        emit({"phase": "spans", "call": name, "spans": has_spans,
+              "package": str(pathlib.Path(pt.__file__).parent.parent), **r,
+              "median": {k: statistics.median(v) for k, v in r.items()
+                         if v and not isinstance(v[0], dict)}})
 
 
 def phase_kernels(torch):
@@ -4253,8 +4459,9 @@ def main():
 
     info = phase_device(torch)
     phase_build()
-    if "--split" in args or "--laps" in args:
-        (phase_split if "--split" in args else phase_laps)(torch)
+    if "--split" in args or "--laps" in args or "--spans" in args:
+        (phase_split if "--split" in args else
+         phase_laps if "--laps" in args else phase_spans)(torch)
         print(nvidia_smi_line(), flush=True)
         return 0
     rows, tables = phase_kernels(torch)

@@ -37,6 +37,7 @@ from patolette_tpu_torch.kernels.lq import lq_candidates
 from patolette_tpu_torch.ops import eigen3
 from patolette_tpu_torch.ops import moments as M
 from patolette_tpu_torch.parallel import mesh as PM
+from patolette_tpu_torch.utils.spans import span
 
 BUCKET_COUNT = 512
 DELTA = 1e-16
@@ -196,58 +197,59 @@ def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
         k0 = torch.full((), int(k0), dtype=torch.int32, device=dev)
     max_k0 = min(12, p)
 
-    ids0 = torch.arange(max_k0, dtype=torch.int32, device=dev)
-    first = _candidates_segmented(colors, w, init_labels, ids0, p,
-                                  bucket_count, mesh=mesh)
-    benefit = torch.zeros((p,), dtype=colors.dtype, device=dev)
-    mu_child = torch.zeros((p, 2, 3), dtype=colors.dtype, device=dev)
-    benefit[:max_k0] = torch.where(ids0 < k0, first.benefit, 0.0)
-    mu_child[:max_k0] = first.mu_child
-    labels = init_labels.to(torch.int32)
-    side = first.side
-    count = k0
-    done = torch.zeros((), dtype=torch.bool, device=dev)
+    with span("lq-loop"):
+        ids0 = torch.arange(max_k0, dtype=torch.int32, device=dev)
+        first = _candidates_segmented(colors, w, init_labels, ids0, p,
+                                      bucket_count, mesh=mesh)
+        benefit = torch.zeros((p,), dtype=colors.dtype, device=dev)
+        mu_child = torch.zeros((p, 2, 3), dtype=colors.dtype, device=dev)
+        benefit[:max_k0] = torch.where(ids0 < k0, first.benefit, 0.0)
+        mu_child[:max_k0] = first.mu_child
+        labels = init_labels.to(torch.int32)
+        side = first.side
+        count = k0
+        done = torch.zeros((), dtype=torch.bool, device=dev)
 
-    bsz = max(1, min(int(batch_splits), (p + 15) // 16, p - 1))
-    # Ramp-up headroom: from k0 = 1 it takes ~log2(bsz) doubling rounds
-    # before bsz splits per round are possible. Extra rounds change
-    # nothing once the palette is full or no benefit is left.
-    rounds = -(-(p - 1) // bsz) + max(1, bsz).bit_length()
-    j_idx = torch.arange(bsz, dtype=torch.int32, device=dev)
-    for _ in range(rounds):
-        vals, sel = top_b(benefit, bsz)
-        sel = sel.to(torch.int32)
-        # top-B is value-sorted, so the valid picks form a prefix.
-        valid = (vals >= DELTA) & (j_idx < p - count)
-        m = valid.sum(dtype=torch.int32)
-        active = ~done & (count < p)
-        done = done | (active & (m == 0))  # no benefit left: stop
-        valid = valid & active
-        # invalid picks go to the dead id p: they match no cluster
-        sel_v = torch.where(valid, sel, p)
+        bsz = max(1, min(int(batch_splits), (p + 15) // 16, p - 1))
+        # Ramp-up headroom: from k0 = 1 it takes ~log2(bsz) doubling rounds
+        # before bsz splits per round are possible. Extra rounds change
+        # nothing once the palette is full or no benefit is left.
+        rounds = -(-(p - 1) // bsz) + max(1, bsz).bit_length()
+        j_idx = torch.arange(bsz, dtype=torch.int32, device=dev)
+        for _ in range(rounds):
+            vals, sel = top_b(benefit, bsz)
+            sel = sel.to(torch.int32)
+            # top-B is value-sorted, so the valid picks form a prefix.
+            valid = (vals >= DELTA) & (j_idx < p - count)
+            m = valid.sum(dtype=torch.int32)
+            active = ~done & (count < p)
+            done = done | (active & (m == 0))  # no benefit left: stop
+            valid = valid & active
+            # invalid picks go to the dead id p: they match no cluster
+            sel_v = torch.where(valid, sel, p)
 
-        # Relabel: each picked cluster's cached LEFT side moves to slot
-        # count + j (parents are disjoint, so no conflicts).
-        jpix = _rank_map(sel_v, p)[labels.long()]
-        labels = torch.where((jpix < bsz) & side, count + jpix, labels)
+            # Relabel: each picked cluster's cached LEFT side moves to slot
+            # count + j (parents are disjoint, so no conflicts).
+            jpix = _rank_map(sel_v, p)[labels.long()]
+            labels = torch.where((jpix < bsz) & side, count + jpix, labels)
 
-        # Left child takes the NEW slot, right child keeps the old one
-        # (local.c:372-379); all 2B children in one candidate pass, their
-        # means from the parents' cumulative bucket sums.
-        valid2 = torch.cat([valid, valid])
-        ids2b = torch.where(valid2, torch.cat([count + j_idx, sel]), p)
-        mu_known = torch.cat([mu_child[sel.long(), 0],
-                              mu_child[sel.long(), 1]])
-        res = _candidates_segmented(colors, w, labels, ids2b, p,
-                                    bucket_count, mu_known=mu_known,
-                                    mesh=mesh)
-        side = torch.where(res.member, res.side, side)
-        # the new rows by gathers from the rank map (no index writes)
-        rk = _rank_map(ids2b, p)
-        has = rk < 2 * bsz
-        rk = torch.clamp_max(rk, 2 * bsz - 1).long()
-        benefit = torch.where(has, res.benefit[rk], benefit)
-        mu_child = torch.where(has[:, None, None], res.mu_child[rk],
-                               mu_child)
-        count = count + torch.where(active, m, 0)
+            # Left child takes the NEW slot, right child keeps the old one
+            # (local.c:372-379); all 2B children in one candidate pass, their
+            # means from the parents' cumulative bucket sums.
+            valid2 = torch.cat([valid, valid])
+            ids2b = torch.where(valid2, torch.cat([count + j_idx, sel]), p)
+            mu_known = torch.cat([mu_child[sel.long(), 0],
+                                  mu_child[sel.long(), 1]])
+            res = _candidates_segmented(colors, w, labels, ids2b, p,
+                                        bucket_count, mu_known=mu_known,
+                                        mesh=mesh)
+            side = torch.where(res.member, res.side, side)
+            # the new rows by gathers from the rank map (no index writes)
+            rk = _rank_map(ids2b, p)
+            has = rk < 2 * bsz
+            rk = torch.clamp_max(rk, 2 * bsz - 1).long()
+            benefit = torch.where(has, res.benefit[rk], benefit)
+            mu_child = torch.where(has[:, None, None], res.mu_child[rk],
+                                   mu_child)
+            count = count + torch.where(active, m, 0)
     return labels, count

@@ -83,6 +83,7 @@ as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 import time
@@ -109,6 +110,7 @@ from patolette_tpu_torch.utils import errors
 from patolette_tpu_torch.utils.config import ColorSpace, QuantizeOptions
 from patolette_tpu_torch.utils.device import (call_device, on_device,
                                               resolve_device)
+from patolette_tpu_torch.utils.spans import span
 
 # Per-stage wall times (ms) of the most recent quantize() call.
 LAST_STAGE_TIMES: dict[str, float] = {}
@@ -191,9 +193,10 @@ def _log(verbose, msg):
 
 
 class _StageTimer:
-    """Per-stage wall clock into ``LAST_STAGE_TIMES``. With ``sync`` (on
-    under verbose) each lap first waits for the device, so a lap holds its
-    own device time; otherwise laps time the host's enqueue."""
+    """Per-stage wall clock into ``LAST_STAGE_TIMES``, each stage also a
+    span in the profiler's timeline. With ``sync`` (on under verbose) each
+    lap first waits for the device, so a lap holds its own device time;
+    otherwise laps time the host's enqueue."""
 
     def __init__(self, verbose, sync, device):
         self.verbose = verbose
@@ -205,6 +208,7 @@ class _StageTimer:
         LAST_STAGE_TIMES = self.laps
 
     def lap(self, name):
+        """Add the time since the previous lap to the lap ``name``."""
         if self.sync:
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
@@ -213,6 +217,14 @@ class _StageTimer:
         if self.verbose:
             print(f"patolette ======== [{name}] {ms:.1f} ms", flush=True)
         self.t = now
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        """The block as the span ``name`` (``utils/spans.py``), lapped as
+        ``name`` when it ends."""
+        with span(name):
+            yield
+            self.lap(name)
 
 
 def _gq_bucket_stage(colors, mesh=None):
@@ -247,17 +259,16 @@ def _lq_stage(colors, weights, buckets, cuts, k0, palette_size,
 
 def _gq_lq_palette(x_lq, w_lq, p, batch_splits, verbose, timer):
     """GQ (device moments + host f64 DP) then LQ on prepared samples."""
-    buckets, bm = _gq_bucket_stage(x_lq)
-    bm_np = bm.to(torch.float64).cpu().numpy()
-    timer.lap("gq-moments")
-    cuts = GQ.gq_host(bm_np, p)
-    k0 = len(cuts) - 1
-    _log(verbose, f"Base cluster count: {k0}")
-    timer.lap("gq-dp")
-    out = _lq_stage(x_lq, w_lq, buckets, cuts, k0, p,
-                    max(1, int(batch_splits)))
-    timer.lap("lq")
-    return out
+    with timer.stage("gq-moments"):
+        buckets, bm = _gq_bucket_stage(x_lq)
+        bm_np = bm.to(torch.float64).cpu().numpy()
+    with timer.stage("gq-dp"):
+        cuts = GQ.gq_host(bm_np, p)
+        k0 = len(cuts) - 1
+        _log(verbose, f"Base cluster count: {k0}")
+    with timer.stage("lq"):
+        return _lq_stage(x_lq, w_lq, buckets, cuts, k0, p,
+                         max(1, int(batch_splits)))
 
 
 def _gather(channels, idx):
@@ -632,13 +643,13 @@ def _pull_lut_program(colors, p, pack, table, enc, timer):
     ``pipeline.py:438-449``): the pack's copy starts first, then the v2
     words come back; on v2's overflow the table goes straight to v1 or a
     raw copy. Laps ``lut-pull`` and ``lut-map-host``."""
-    pack = _start_host_copy(pack)
-    lut = LUT.pull_encoded_v2(enc)
-    if lut is None:
-        lut = LUT.pull_lut(table, try_v2=False)
-    timer.lap("lut-pull")
-    palette_map = LUT.lut_map_host(colors, lut)
-    timer.lap("lut-map-host")
+    with timer.stage("lut-pull"):
+        pack = _start_host_copy(pack)
+        lut = LUT.pull_encoded_v2(enc)
+        if lut is None:
+            lut = LUT.pull_lut(table, try_v2=False)
+    with timer.stage("lut-map-host"):
+        palette_map = LUT.lut_map_host(colors, lut)
     palette, _ = _unpack_palette(_host_copy_done(pack), p)
     return True, palette, palette_map, errors.exit_code_message(
         errors.ExitCode.SUCCESS
@@ -654,18 +665,18 @@ def _quantize_via_samples_fused(colors, p, *, csp, kmeans_niter,
     up, :func:`_sample_lut_program` runs, two pulls come back. Laps
     ``sample-in``, ``palette+lut-build`` (the host's enqueue unless
     synced), ``lut-pull``, ``lut-map-host``."""
-    samples = _upload_samples(
-        colors, p, weights=weights, seed=seed, lq_max_samples=lq_max_samples,
-        kmeans_niter=kmeans_niter, kmeans_max_samples=kmeans_max_samples,
-        device=device)
-    timer.lap("sample-in")
+    with timer.stage("sample-in"):
+        samples = _upload_samples(
+            colors, p, weights=weights, seed=seed,
+            lq_max_samples=lq_max_samples, kmeans_niter=kmeans_niter,
+            kmeans_max_samples=kmeans_max_samples, device=device)
     _log(verbose, "Palette + LUT (fused device program)")
-    pack, table, enc = _sample_lut_program(
-        *samples, p=p, csp=csp, kmeans_niter=kmeans_niter,
-        kmeans_max_samples=kmeans_max_samples, seed=seed,
-        lq_batch_splits=lq_batch_splits)
-    del samples
-    timer.lap("palette+lut-build")
+    with timer.stage("palette+lut-build"):
+        pack, table, enc = _sample_lut_program(
+            *samples, p=p, csp=csp, kmeans_niter=kmeans_niter,
+            kmeans_max_samples=kmeans_max_samples, seed=seed,
+            lq_batch_splits=lq_batch_splits)
+        del samples
     return _pull_lut_program(colors, p, pack, table, enc, timer)
 
 
@@ -675,12 +686,12 @@ def _sample_palette(colors, p, *, csp, kmeans_niter, kmeans_max_samples,
     """The staged palette search on the host-drawn samples: GQ with its
     DP on the host in f64, LQ, KMeans. Returns the (p, 3) working-space
     centres and their (p,) valid flags on the device."""
-    x_lq, w_lq, x_km, w_km = _upload_samples(
-        colors, p, weights=weights, seed=seed, lq_max_samples=lq_max_samples,
-        kmeans_niter=kmeans_niter, kmeans_max_samples=kmeans_max_samples,
-        device=device)
-    x_lq = cs.srgb_to_working(x_lq, csp)
-    timer.lap("sample-in")
+    with timer.stage("sample-in"):
+        x_lq, w_lq, x_km, w_km = _upload_samples(
+            colors, p, weights=weights, seed=seed,
+            lq_max_samples=lq_max_samples, kmeans_niter=kmeans_niter,
+            kmeans_max_samples=kmeans_max_samples, device=device)
+        x_lq = cs.srgb_to_working(x_lq, csp)
 
     _log(verbose, "Palette generation")
     _, _, centers, valid = _gq_lq_palette(
@@ -689,13 +700,13 @@ def _sample_palette(colors, p, *, csp, kmeans_niter, kmeans_max_samples,
 
     if kmeans_niter > 0:
         _log(verbose, "KMeans refinement")
-        if x_km is None:  # S11: reuse the LQ sample
-            x_km, w_km = x_lq, w_lq
-        else:
-            x_km = cs.srgb_to_working(x_km, csp)
-        centers = KM.lloyd_iterations(x_km, w_km, centers, valid,
-                                      kmeans_niter)
-        timer.lap("kmeans")
+        with timer.stage("kmeans"):
+            if x_km is None:  # S11: reuse the LQ sample
+                x_km, w_km = x_lq, w_lq
+            else:
+                x_km = cs.srgb_to_working(x_km, csp)
+            centers = KM.lloyd_iterations(x_km, w_km, centers, valid,
+                                          kmeans_niter)
     return centers, valid
 
 
@@ -731,12 +742,13 @@ def _quantize_via_samples(colors, p, *, palette_only, csp, kmeans_niter,
     palette_map = None
     if not palette_only:
         _log(verbose, "NN mapping (24-bit LUT)")
-        table = LUT.build_lut_device(centers, valid, csp, LUT.lut_dtype(p))
-        timer.lap("lut-build")
-        table = LUT.pull_lut(table)
-        timer.lap("lut-build+pull")
-        palette_map = LUT.lut_map_host(colors, table)
-        timer.lap("lut-map-host")
+        with timer.stage("lut-build"):
+            table = LUT.build_lut_device(centers, valid, csp,
+                                         LUT.lut_dtype(p))
+        with timer.stage("lut-build+pull"):
+            table = LUT.pull_lut(table)
+        with timer.stage("lut-map-host"):
+            palette_map = LUT.lut_map_host(colors, table)
 
     palette = _finish_palette(centers, valid, p, csp)
     return True, palette, palette_map, errors.exit_code_message(
@@ -778,18 +790,18 @@ def _quantize_streamed(colors, p, *, width, height, dither, dither_segment,
     """
     n = width * height
     _log(verbose, f"Streamed route: {n / 1e6:.1f} MP")
-    samples = _upload_samples(
-        colors, p, weights=weights, seed=seed, lq_max_samples=lq_max_samples,
-        kmeans_niter=kmeans_niter, kmeans_max_samples=kmeans_max_samples,
-        device=device)
-    timer.lap("sample-in")
-    centers, valid, pack = _sample_palette_program(
-        *samples, p=p, csp=csp, kmeans_niter=kmeans_niter,
-        kmeans_max_samples=kmeans_max_samples, seed=seed,
-        lq_batch_splits=lq_batch_splits)
-    del samples
-    pack = _start_host_copy(pack)
-    timer.lap("palette (device)")
+    with timer.stage("sample-in"):
+        samples = _upload_samples(
+            colors, p, weights=weights, seed=seed,
+            lq_max_samples=lq_max_samples, kmeans_niter=kmeans_niter,
+            kmeans_max_samples=kmeans_max_samples, device=device)
+    with timer.stage("palette (device)"):
+        centers, valid, pack = _sample_palette_program(
+            *samples, p=p, csp=csp, kmeans_niter=kmeans_niter,
+            kmeans_max_samples=kmeans_max_samples, seed=seed,
+            lq_batch_splits=lq_batch_splits)
+        del samples
+        pack = _start_host_copy(pack)
 
     palette_map = None
     if not palette_only:
@@ -799,17 +811,18 @@ def _quantize_streamed(colors, p, *, width, height, dither, dither_segment,
         _log(verbose, f"Streamed {mode}: strips of {rows} rows")
         for r0 in range(0, height, rows):
             r1 = min(height, r0 + rows)
-            strip = _put(colors[r0 * width:r1 * width], device)
-            timer.lap("strip-in")
-            pm = _map_strip(strip, centers, valid, width, r1 - r0, csp,
-                            dither, dither_segment)
-            del strip
-            torch.from_numpy(palette_map[r0 * width:r1 * width]).copy_(pm)
-            del pm
-            timer.lap(mode)
+            with timer.stage("strip-in"):
+                strip = _put(colors[r0 * width:r1 * width], device)
+            with timer.stage(mode):
+                pm = _map_strip(strip, centers, valid, width, r1 - r0, csp,
+                                dither, dither_segment)
+                del strip
+                torch.from_numpy(
+                    palette_map[r0 * width:r1 * width]).copy_(pm)
+                del pm
 
-    palette, _ = _unpack_palette(_host_copy_done(pack), p)
-    timer.lap("palette-out")
+    with timer.stage("palette-out"):
+        palette, _ = _unpack_palette(_host_copy_done(pack), p)
     return True, palette, palette_map, errors.exit_code_message(
         errors.ExitCode.SUCCESS
     )
@@ -821,18 +834,18 @@ def _working_image(colors, weights, width, height, tile_size, csp, device,
     none) and the working-space planes on the device: the front of the
     resident and one-shot routes. Returns ``(planes, weights or None)``;
     saliency gives None when a side is <= 3."""
-    x = _put(colors, device)
-    w = None
-    if weights is not None:
-        w = _put_weights(np.asarray(weights).reshape(-1), device)
-    timer.lap("stage-in")
+    with timer.stage("stage-in"):
+        x = _put(colors, device)
+        w = None
+        if weights is not None:
+            w = _put_weights(np.asarray(weights).reshape(-1), device)
     if tile_size <= 0:
         return color_convert(x, csp, "working"), w
     _log(verbose, "Generating saliency map")
-    xp_srgb = color_convert(x, 0, "working")
-    del x
-    w = SAL.get_weights_planar(xp_srgb, height, width, tile_size)
-    timer.lap("saliency")
+    with timer.stage("saliency"):
+        xp_srgb = color_convert(x, 0, "working")
+        del x
+        w = SAL.get_weights_planar(xp_srgb, height, width, tile_size)
     return tuple(cs.srgb_to_working(xp_srgb, csp)), w
 
 
@@ -847,16 +860,16 @@ def _quantize_resident(colors, p, *, width, height, palette_only, dither,
     _log(verbose, "Palette generation")
 
     rng = np.random.default_rng(seed)
-    if lq_max_samples and n > lq_max_samples:
-        idx = torch.from_numpy(
-            rng.integers(0, n, size=lq_max_samples, dtype=np.int32)
-        ).to(device).long()
-        x_lq = _gather(xp_work, idx)
-        w_lq = None if w_full is None else w_full[idx]
-    else:
-        x_lq = torch.stack(xp_work, dim=-1).contiguous()
-        w_lq = w_full
-    timer.lap("to-working+sample")
+    with timer.stage("to-working+sample"):
+        if lq_max_samples and n > lq_max_samples:
+            idx = torch.from_numpy(
+                rng.integers(0, n, size=lq_max_samples, dtype=np.int32)
+            ).to(device).long()
+            x_lq = _gather(xp_work, idx)
+            w_lq = None if w_full is None else w_full[idx]
+        else:
+            x_lq = torch.stack(xp_work, dim=-1).contiguous()
+            w_lq = w_full
 
     _, _, centers, valid = _gq_lq_palette(
         x_lq, w_lq, p, lq_batch_splits, verbose, timer
@@ -864,37 +877,37 @@ def _quantize_resident(colors, p, *, width, height, palette_only, dither,
 
     if kmeans_niter > 0:
         _log(verbose, "KMeans refinement")
-        cap = KM.subsample_cap(p, kmeans_max_samples)
-        if n > cap:
-            idx = torch.from_numpy(
-                rng.integers(0, n, size=cap, dtype=np.int32)
-            ).to(device).long()
-            samples = _gather(xp_work, idx)
-            w_km = None if w_full is None else w_full[idx]
-        else:
-            samples = torch.stack(xp_work, dim=-1).contiguous()
-            w_km = w_full
-        centers = KM.lloyd_iterations(samples, w_km, centers, valid,
-                                      kmeans_niter)
-        timer.lap("kmeans")
+        with timer.stage("kmeans"):
+            cap = KM.subsample_cap(p, kmeans_max_samples)
+            if n > cap:
+                idx = torch.from_numpy(
+                    rng.integers(0, n, size=cap, dtype=np.int32)
+                ).to(device).long()
+                samples = _gather(xp_work, idx)
+                w_km = None if w_full is None else w_full[idx]
+            else:
+                samples = torch.stack(xp_work, dim=-1).contiguous()
+                w_km = w_full
+            centers = KM.lloyd_iterations(samples, w_km, centers, valid,
+                                          kmeans_niter)
 
     palette_map = None
     if dither:
         _log(verbose, "Dithering")
-        palette_map = DITH.riemersma_dither_planar(
-            xp_work, centers, valid, width, height, csp,
-            segment=dither_segment,
-        ).cpu().numpy()
-        timer.lap("dither")
+        with timer.stage("dither"):
+            palette_map = DITH.riemersma_dither_planar(
+                xp_work, centers, valid, width, height, csp,
+                segment=dither_segment,
+            ).cpu().numpy()
     elif not palette_only:
         _log(verbose, "NN mapping")
-        xi = cs.working_to_ictcp(xp_work, csp)
-        pi = cs.working_to_ictcp(centers, csp)
-        palette_map = assign_planar(xi, pi, valid).cpu().numpy()
-        timer.lap("nn-map")
+        with timer.stage("nn-map"):
+            xi = cs.working_to_ictcp(xp_work, csp)
+            pi = cs.working_to_ictcp(centers, csp)
+            palette_map = assign_planar(xi, pi, valid).cpu().numpy()
 
-    palette = _finish_palette(centers, valid, p, csp)
-    timer.lap("palette-out")
+    with timer.stage("palette-out"):
+        palette = _finish_palette(centers, valid, p, csp)
     return True, palette, palette_map, errors.exit_code_message(
         errors.ExitCode.SUCCESS
     )
@@ -1009,34 +1022,34 @@ def _quantize_one_shot(colors, p, *, width, height, palette_only, dither,
     xp_work, w = _working_image(colors, weights, width, height, tile_size,
                                 csp, device, verbose, timer)
     _log(verbose, "Palette generation")
-    centers, valid = _palette_core(
-        xp_work, w, p, kmeans_niter, kmeans_max_samples, seed, None,
-        lq_batch_splits, lq_max_samples)
-    timer.lap("palette")
+    with timer.stage("palette"):
+        centers, valid = _palette_core(
+            xp_work, w, p, kmeans_niter, kmeans_max_samples, seed, None,
+            lq_batch_splits, lq_max_samples)
 
     pmap = None
     if dither:
         _log(verbose, "Dithering")
-        pmap = DITH.riemersma_dither_planar(
-            xp_work, centers, valid, width, height, csp,
-            segment=dither_segment)
-        timer.lap("dither")
+        with timer.stage("dither"):
+            pmap = DITH.riemersma_dither_planar(
+                xp_work, centers, valid, width, height, csp,
+                segment=dither_segment)
     elif not palette_only:
         _log(verbose, "NN mapping")
-        pmap = assign_planar(cs.working_to_ictcp(xp_work, csp),
-                             cs.working_to_ictcp(centers, csp), valid)
-        timer.lap("nn-map")
+        with timer.stage("nn-map"):
+            pmap = assign_planar(cs.working_to_ictcp(xp_work, csp),
+                                 cs.working_to_ictcp(centers, csp), valid)
     del xp_work, w
 
     # the one wait: every result copied back, then the stream synced
-    outs = [t.to("cpu", non_blocking=True) for t in
-            (cs.working_to_srgb(centers, csp), valid)
-            + (() if pmap is None else (pmap,))]
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
-    palette = _fill_palette(outs[0].numpy(), outs[1].numpy(), p)
-    palette_map = None if pmap is None else outs[2].numpy()
-    timer.lap("one-shot")
+    with timer.stage("one-shot"):
+        outs = [t.to("cpu", non_blocking=True) for t in
+                (cs.working_to_srgb(centers, csp), valid)
+                + (() if pmap is None else (pmap,))]
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        palette = _fill_palette(outs[0].numpy(), outs[1].numpy(), p)
+        palette_map = None if pmap is None else outs[2].numpy()
     return True, palette, palette_map, errors.exit_code_message(
         errors.ExitCode.SUCCESS
     )
@@ -1084,19 +1097,19 @@ def _quantize_image_fused_lut(colors, p, *, width, height, tile_size,
     ``stage-in``), :func:`_image_lut_program` runs (lap
     ``saliency+palette+lut-build``), then the pulls and the host map of the
     sampled fused route."""
-    x = _put(colors, device)
-    w = (None if weights is None else
-         _put_weights(np.asarray(weights).reshape(-1), device))
-    timer.lap("stage-in")
+    with timer.stage("stage-in"):
+        x = _put(colors, device)
+        w = (None if weights is None else
+             _put_weights(np.asarray(weights).reshape(-1), device))
     _log(verbose, "Saliency + palette + LUT (fused device program)")
-    pack, table, enc = _image_lut_program(
-        x, w, width=width, height=height, p=p, csp=csp,
-        tile_size=tile_size if weights is None else 0.0,
-        kmeans_niter=kmeans_niter, kmeans_max_samples=kmeans_max_samples,
-        seed=seed, lq_max_samples=lq_max_samples,
-        lq_batch_splits=lq_batch_splits)
-    del x, w
-    timer.lap("saliency+palette+lut-build")
+    with timer.stage("saliency+palette+lut-build"):
+        pack, table, enc = _image_lut_program(
+            x, w, width=width, height=height, p=p, csp=csp,
+            tile_size=tile_size if weights is None else 0.0,
+            kmeans_niter=kmeans_niter,
+            kmeans_max_samples=kmeans_max_samples, seed=seed,
+            lq_max_samples=lq_max_samples, lq_batch_splits=lq_batch_splits)
+        del x, w
     return _pull_lut_program(colors, p, pack, table, enc, timer)
 
 
@@ -1142,54 +1155,55 @@ def _quantize_sharded(colors, p, mesh, *, width, height, dither,
                  and colors.dtype == np.uint8 and p <= 256
                  and n >= _lut_min_pixels(p)
                  and LUT.LUT_SIZE % mesh.world == 0)
-    chans = _put(rows, device).unbind(1)
-    w_dev = _put_weights(w_host, device)
-    timer.lap("stage-in")
+    with timer.stage("stage-in"):
+        chans = _put(rows, device).unbind(1)
+        w_dev = _put_weights(w_host, device)
 
     if saliency:
-        if strip_h > 3:
-            _log(verbose, "Generating saliency map (per-strip)")
-            w_dev = PM.saliency_sharded(mesh, width, strip_h, tile_size,
-                                        n)(chans)
-        elif height > 3 and width > 3:
-            _log(verbose, "Generating saliency map (replicated)")
-            full = _gather_rows(mesh, rows) if local else colors
-            w_all = SAL.get_weights_planar(
-                color_convert(_put(full, device), 0, "working"), height,
-                width, tile_size)
-            w_dev = w_all[lo:hi].contiguous()
-        timer.lap("saliency")
+        with timer.stage("saliency"):
+            if strip_h > 3:
+                _log(verbose, "Generating saliency map (per-strip)")
+                w_dev = PM.saliency_sharded(mesh, width, strip_h, tile_size,
+                                            n)(chans)
+            elif height > 3 and width > 3:
+                _log(verbose, "Generating saliency map (replicated)")
+                full = _gather_rows(mesh, rows) if local else colors
+                w_all = SAL.get_weights_planar(
+                    color_convert(_put(full, device), 0, "working"), height,
+                    width, tile_size)
+                w_dev = w_all[lo:hi].contiguous()
 
     _log(verbose, "Palette generation (sharded)")
     with_map = not palette_only and not dither and not lut_route
-    out = PM.quantize_palette_sharded(
-        mesh, p, color_space=csp, kmeans_niter=kmeans_niter,
-        kmeans_max_samples=kmeans_max_samples, seed=seed,
-        lq_max_samples=lq_max_samples, planar=True, with_map=with_map,
-    )(chans, w_dev)
-    centers, valid = out[0], out[1]
-    del w_dev
-    timer.lap("palette (sharded)")
+    with timer.stage("palette (sharded)"):
+        out = PM.quantize_palette_sharded(
+            mesh, p, color_space=csp, kmeans_niter=kmeans_niter,
+            kmeans_max_samples=kmeans_max_samples, seed=seed,
+            lq_max_samples=lq_max_samples, planar=True, with_map=with_map,
+        )(chans, w_dev)
+        centers, valid = out[0], out[1]
+        del w_dev
 
     palette_map = None
     if not palette_only:
-        if lut_route:
-            _log(verbose, "NN mapping (sharded 24-bit LUT)")
-            enc, lut_slice = LUT.build_lut_enc_sharded(mesh, centers, valid,
-                                                       csp)
-            table = LUT.pull_lut_sharded(mesh, enc, lut_slice)
-            palette_map = LUT.lut_map_host(colors, table)
-        else:
-            if dither:
-                _log(verbose, "Dithering (per-strip)")
-                pm = PM.dither_sharded(mesh, width, height, csp,
-                                       dither_segment, planar=True)(
-                    chans, centers, valid)
+        with timer.stage("dither" if dither else "nn-map"):
+            if lut_route:
+                _log(verbose, "NN mapping (sharded 24-bit LUT)")
+                enc, lut_slice = LUT.build_lut_enc_sharded(mesh, centers,
+                                                           valid, csp)
+                table = LUT.pull_lut_sharded(mesh, enc, lut_slice)
+                palette_map = LUT.lut_map_host(colors, table)
             else:
-                pm = out[2]
-            del out, chans
-            palette_map = (pm if local else PM.gather(mesh, pm)).cpu().numpy()
-        timer.lap("dither" if dither else "nn-map")
+                if dither:
+                    _log(verbose, "Dithering (per-strip)")
+                    pm = PM.dither_sharded(mesh, width, height, csp,
+                                           dither_segment, planar=True)(
+                        chans, centers, valid)
+                else:
+                    pm = out[2]
+                del out, chans
+                palette_map = (pm if local
+                               else PM.gather(mesh, pm)).cpu().numpy()
 
     palette = _finish_palette(centers, valid, p, csp)
     return True, palette, palette_map, errors.exit_code_message(
