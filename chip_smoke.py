@@ -190,6 +190,11 @@ benchmark cells' three calls, their walls untraced and traced, and from
 the profiler's trace each stage span checked against the laps and what the
 spans hold (the palette core's idle and device time, the LQ loop's
 submissions, the host waits); with ``--root DIR`` too.
+With ``--lq-graph`` it runs only the device, build and lq-graph phases:
+the benchmark cells' calls with the LQ loop's graph (walls, palette-core
+laps, peak allocated and reserved memory, LQ_GRAPH), then the replayed loop
+held bit for bit to the eager one on every cell's inputs, two under 2^18
+pixels and a 1024-colour call's, under sync debug mode "error".
 With ``--profile`` the e2e phases (and e2e-mesh-u8) also trace one call each with
 torch.profiler (device busy share, kernels by device time). With ``--out
 DIR`` the ptxas report, the profiler tables and every JSON line
@@ -573,13 +578,18 @@ def lq_loop_inputs(torch):
                      nb))
         return real(colors, wm, cand, tab, nb)
 
+    # the spy reads the host, which a graph's capture forbids: the eager
+    # loop runs
+    graphed = local_q.lq_quantize
     local_q.lq_candidates = spy
+    local_q.lq_quantize = local_q.lq_loop
     try:
         ok, _, _, msg = pt.quantize(
             W, H, synth_image_f32(W, H), 256, dither=False, tile_size=0,
             kmeans_niter=32, color_space=pt.ColorSpace_ICtCp, device=DEV)
     finally:
         local_q.lq_candidates = real
+        local_q.lq_quantize = graphed
     check(ok, f"quantize failed: {msg}")
     shares = [s for s, _, _ in seen]
     share, args, nb = sorted(seen, key=lambda e: e[0])[len(seen) // 2]
@@ -2425,6 +2435,165 @@ def phase_spans(torch):
                          if v and not isinstance(v[0], dict)}})
 
 
+LQ_GRAPH_CALLS = 8
+
+
+# The --lq-graph phase's calls: a benchmark cell, and what is changed in
+# its traffic (width, height) or call (palette_size).
+LQ_GRAPH_CASES = {
+    "default-4k": ("default-4k", {}),
+    "export-4k": ("export-4k", {}),
+    "default-2k": ("default-2k", {}),
+    # under the LQ sample's 2^18 pixels, weighted and not
+    "default-320": ("default-4k", dict(width=320, height=240)),
+    "export-320": ("export-4k", dict(width=320, height=240)),
+    # int32 labels, ~4x the rounds
+    "export-4k-1024": ("export-4k", dict(palette_size=1024)),
+}
+
+
+def _cell_call(name, count=4):
+    """A case of ``LQ_GRAPH_CASES`` as ``portbench/run.py`` calls its cell
+    (the cell's configuration and traffic files; images made on the card
+    from seed 0): (width, height, palette size, images, the call's other
+    arguments)."""
+    from patolette_tpu_torch.utils.config import ColorSpace
+    from portbench.harness import images as gen
+    from portbench.harness import manifest
+
+    workload, changes = LQ_GRAPH_CASES[name]
+    cell = manifest.cell(manifest.load_benchmark(), workload)
+    call = dict(cell["config"]["call"])
+    call.update((k, v) for k, v in changes.items() if k in call)
+    tr = dict(cell["traffic"], images=count)
+    tr.update((k, v) for k, v in changes.items() if k not in call)
+    p = int(call.pop("palette_size"))
+    call["color_space"] = ColorSpace[call["color_space"]]
+    return (int(tr["width"]), int(tr["height"]), p,
+            gen.make_images(tr, cell["config"]["input_dtype"], 0, DEV), call)
+
+
+def phase_lq_graph(torch):
+    """The LQ loop's graph (``local_q.lq_quantize``). Each benchmark
+    cell's call on its four images: two warm calls, then
+    ``LQ_GRAPH_CALLS`` calls' walls, palette-core laps, peak allocated and
+    reserved device memory, ``LQ_GRAPH`` and the graphs' held bytes
+    (``lq-graph-cell`` lines). Then the loop's inputs of every call of each
+    case of ``LQ_GRAPH_CASES``, caught by a spy: each input's eager loop
+    (``lq_loop``) against the cached graph, captured on the first and
+    replayed on all four, capture and replays under sync debug mode
+    "error", labels and count bit for bit, and the device memory the
+    capture reserved (``lq-graph-check`` lines)."""
+    import patolette_tpu_torch as pt
+    from patolette_tpu_torch.models import local_q, pipeline
+
+    core = ("gq-moments", "gq-dp", "lq", "kmeans", "palette",
+            "palette+lut-build", "palette (device)", "palette-out")
+    for name in ("default-4k", "export-4k", "default-2k"):
+        w, h, p, imgs, kw = _cell_call(name)
+
+        def run(i):
+            t0 = time.perf_counter()
+            ok, _, _, msg = pt.quantize(w, h, imgs[i % len(imgs)], p,
+                                         device=DEV, **kw)
+            check(ok, f"{name} failed: {msg}")
+            return (time.perf_counter() - t0) * 1e3
+
+        local_q.clear_lq_graphs()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        warm = [run(0), run(1)]   # the key's eager call, then its capture
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        local_q.reset_lq_graph()
+        walls, core_ms = [], []
+        for i in range(LQ_GRAPH_CALLS):
+            walls.append(run(i))
+            core_ms.append(sum(v for k, v in pipeline.LAST_STAGE_TIMES.items()
+                               if k in core))
+        torch.cuda.synchronize()
+        held = local_q.graph_bytes()
+        emit({"phase": "lq-graph-cell", "call": name,
+              "warm_ms": warm, "wall_ms": walls, "palette_host_ms": core_ms,
+              "median_wall_ms": statistics.median(walls),
+              "median_palette_host_ms": statistics.median(core_ms),
+              "max_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
+              "max_reserved_mb": torch.cuda.max_memory_reserved() / 1e6,
+              "graph_bytes": held, "lq_graph": dict(local_q.LQ_GRAPH)})
+        check(held <= pipeline.LQ_GRAPH_BYTES,
+              f"{name}: the graphs hold {held} B")
+        del imgs
+
+    real = local_q.lq_quantize
+    for name in LQ_GRAPH_CASES:
+        w, h, p, imgs, kw = _cell_call(name)
+        caught = []
+
+        def spy(colors, weights, init_labels, k0, palette_size, **kw2):
+            caught.append((
+                colors.clone(),
+                None if weights is None else weights.clone(),
+                init_labels.clone(),
+                k0.clone() if isinstance(k0, torch.Tensor) else k0,
+                palette_size, kw2))
+            return real(colors, weights, init_labels, k0, palette_size,
+                        **kw2)
+
+        local_q.lq_quantize = spy
+        try:
+            for img in imgs:
+                ok, _, _, msg = pt.quantize(w, h, img, p, device=DEV, **kw)
+                check(ok, f"{name} failed: {msg}")
+        finally:
+            local_q.lq_quantize = real
+        del imgs
+        keys = {(a[0].shape[0], a[1] is not None, a[4],
+                 tuple(sorted(a[5].items()))) for a in caught}
+        check(len(caught) == 4 and len(keys) == 1,
+              f"{name}: {len(caught)} LQ calls, keys {keys}")
+        eager = [local_q.lq_loop(*a[:5], **a[5]) for a in caught]
+        local_q.clear_lq_graphs()
+        local_q.reset_lq_graph()
+        local_q.lq_quantize(*caught[0][:5], **caught[0][5])   # first sight
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            local_q.lq_quantize(*caught[0][:5], **caught[0][5])   # capture
+            t1 = time.perf_counter()
+            got = [local_q.lq_quantize(*a[:5], **a[5]) for a in caught]
+            t2 = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        same = [bool(torch.equal(g[0], e[0]) and torch.equal(g[1], e[1]))
+                for g, e in zip(got, eager)]
+        # the outputs of consecutive calls are copies, not the graph's own
+        apart = len({g[0].data_ptr() for g in got}) == len(got)
+        counts = local_q.LQ_GRAPH
+        emit({"phase": "lq-graph-check", "call": name,
+              "n": caught[0][0].shape[0], "p": p,
+              "weighted": caught[0][1] is not None,
+              "k0": [int(a[3]) for a in caught],
+              "count": [int(g[1]) for g in got], "same": same,
+              # host time: capture, instantiation and one replay's enqueue;
+              # a replay's enqueue
+              "capture_call_host_ms": (t1 - t0) * 1e3,
+              "replay_call_host_ms": (t2 - t1) * 1e3 / len(caught),
+              # the graph's pool and the inputs' segments
+              "capture_reserved_mb": (torch.cuda.memory_reserved()
+                                      - reserved) / 1e6,
+              "graph_bytes": local_q.graph_bytes(),
+              "apart": apart, "lq_graph": dict(counts)})
+        check(all(same), f"{name}: replay differs from the eager loop")
+        check(apart, f"{name}: replayed outputs share memory")
+        check(counts == {"eager": 1, "captured": 1,
+                         "replayed": 1 + len(caught)},
+              f"{name}: LQ_GRAPH {counts}")
+    local_q.clear_lq_graphs()
+    check(local_q.graph_bytes() == 0, "cleared graphs still hold inputs")
+
+
 def phase_kernels(torch):
     from patolette_tpu_torch.kernels import build
 
@@ -2542,7 +2711,7 @@ def phase_pull(torch, tables):
     launches = {}
     for branch, expect in PULL_BRANCHES:
         t = inputs[branch]
-        kernels.reset_launches()
+        reset_launches()
         got = lut.pull_lut(t)
         launched = {k: kernels.LAUNCHES[k] for k in k6}
         launches[branch] = dict(kernels.LAUNCHES)
@@ -2679,6 +2848,17 @@ def _profile_call(torch, call, name):
                        [:8]]})
 
 
+def reset_launches():
+    """``kernels.reset_launches()``, and the LQ graphs forgotten: a
+    replayed loop runs no kernel wrapper, so the next call of each key runs
+    the loop eagerly and its K1 and K2 launches count."""
+    from patolette_tpu_torch import kernels
+    from patolette_tpu_torch.models import local_q
+
+    kernels.reset_launches()
+    local_q.clear_lq_graphs()
+
+
 # Kernels each path must launch (names of kernels.LAUNCHES).
 MAIN_PATH_KERNELS = ("segment_sum", "lq_candidates", "assign_planar",
                      "kmeans_step", "color_convert")
@@ -2711,7 +2891,7 @@ def _drive(torch, run, colors, path_kernels, what):
     run(colors)
     warm_s = time.perf_counter() - t0
 
-    kernels.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     pal, pmap = run(colors)
     first_s = time.perf_counter() - t0
@@ -2738,14 +2918,18 @@ def _drive(torch, run, colors, path_kernels, what):
 
 
 def _check_footprint(stats, n, name):
-    """Peak device bytes per pixel of a call, held to the pipeline's
-    constant of that name (the budget's footprint model of its route)."""
+    """Peak device bytes of a call held to the budget's footprint model of
+    its route: the pipeline's constant of that name a pixel, and what the LQ
+    graphs hold from call to call (``pipeline.LQ_GRAPH_BYTES``, whatever
+    N). Returns the peak's bytes per pixel."""
     from patolette_tpu_torch.models import pipeline
 
-    bpp = stats["peak_device_bytes"] / n
+    peak = stats["peak_device_bytes"]
     limit = getattr(pipeline, name)
-    check(bpp <= limit, f"peak {bpp} B/px above {name} = {limit}")
-    return bpp
+    check(peak <= n * limit + pipeline.LQ_GRAPH_BYTES,
+          f"peak {peak} B above {name} = {limit} a pixel and the LQ "
+          f"graphs' {pipeline.LQ_GRAPH_BYTES} B")
+    return peak / n
 
 
 def _check_outputs(pal, pmap, p, n):
@@ -2884,7 +3068,7 @@ def phase_e2e(torch, profile=False):
 
     os.environ["PATOLETTE_NO_FUSED_LUT"] = "1"
     try:
-        kernels.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         pals, pmaps = run(img_u8)
         staged_s = time.perf_counter() - t0
@@ -3029,7 +3213,8 @@ def phase_e2e_image_fused_lut(torch):
     check("saliency+palette+lut-build" in stats["stage_ms"],
           "the call missed the image fused LUT route")
     used = _check_outputs(pal, pmap, p, w * h)
-    model = pipeline._image_lut_bytes(w * h)
+    # the route's model, and what the LQ graphs hold from call to call
+    model = pipeline._image_lut_bytes(w * h) + pipeline.LQ_GRAPH_BYTES
     check(stats["peak_device_bytes"] <= model,
           f"peak {stats['peak_device_bytes']} B above the route's model "
           f"{model} B")
@@ -3085,7 +3270,7 @@ def phase_e2e_headline(torch, peak_4k):
     run()
     warm_s = time.perf_counter() - t0
     walls, laps = [], []
-    kernels.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     pal, pmap = None, None
     for i in range(3):
@@ -3149,7 +3334,7 @@ def phase_e2e_headline(torch, peak_4k):
     # and at 100 MP (over _lut_min_pixels(1024) = 2^25) the call keeps the
     # sampled route, so this path launches K5's u16 instantiation
     p16 = 1024
-    kernels.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with _K5Watch(k5_seen):
         ok, pal16, pmap16, msg = pt.quantize(
@@ -3376,7 +3561,7 @@ def phase_e2e_default(torch, profile=False):
     quality = _dither_quality(torch, img, pal, pmap, w, h, "default call")
 
     img_u8 = np.round(img * 255.0).astype(np.uint8)
-    kernels.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     pal8, pmap8 = run(img_u8)
     u8_s = time.perf_counter() - t0
@@ -3603,7 +3788,7 @@ def phase_api(torch):
     planes = tuple(x[:, k].contiguous() for k in range(3))
 
     def timed(name, fn, **found):
-        kernels.reset_launches()
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = fn()
@@ -4094,7 +4279,7 @@ def _palette_and_dither(torch, mesh, chans, w, h, p):
     from patolette_tpu_torch import kernels
     from patolette_tpu_torch.parallel import distributed as D
 
-    kernels.reset_launches()
+    reset_launches()
     centers, valid, pmap = D.quantize_palette_distributed(
         mesh, p, **MESH_PALETTE_KW)(chans, None)
     dmap = D.dither_distributed(mesh, w, h, 2, planar=True)(chans, centers,
@@ -4126,7 +4311,7 @@ def _mesh_palette_world1(torch, mesh, img, p):
     chans = tuple(torch.from_numpy(img[:, k].copy()).to(DEV)
                   for k in range(3))
     no_draws = dict(kmeans_niter=0, lq_max_samples=0)
-    kernels.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     got = D.quantize_palette_distributed(mesh, p, planar=True, **no_draws)(
         chans, None)
@@ -4197,7 +4382,7 @@ def mesh_worker(port, rank, world, out_dir):
             ("default", img, {})):
         walls = []
         for i in range(3):
-            kernels.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             with _TableWatch() as seen:
                 ok, pal, pmap, msg = pt.quantize(W, H, colors, 256,
@@ -4459,9 +4644,11 @@ def main():
 
     info = phase_device(torch)
     phase_build()
-    if "--split" in args or "--laps" in args or "--spans" in args:
+    if ("--split" in args or "--laps" in args or "--spans" in args
+            or "--lq-graph" in args):
         (phase_split if "--split" in args else
-         phase_laps if "--laps" in args else phase_spans)(torch)
+         phase_laps if "--laps" in args else
+         phase_spans if "--spans" in args else phase_lq_graph)(torch)
         print(nvidia_smi_line(), flush=True)
         return 0
     rows, tables = phase_kernels(torch)

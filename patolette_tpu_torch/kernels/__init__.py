@@ -5,7 +5,10 @@ One module per kernel: ``segment`` (K1), ``lq`` (K2), ``assign`` (K3),
 (K8), ``mbd`` (K9), ``colorspace`` (K10), ``gq`` (K11). Each wrapper takes
 the twin for tensors on the CPU and launches its kernel (or raises) for
 tensors on the card; ``LAUNCHES`` counts the wrapper
-calls that launched, so a run can show that its path went through them.
+calls that launched, so a run can show that its path went through them
+(a replayed CUDA graph calls none: the LQ loop's K1 and K2 count when
+``models/local_q.py`` runs the loop eagerly or captures it, not when it
+replays it).
 """
 
 LAUNCHES = {

@@ -25,14 +25,26 @@ its picks all going to the dead slot ``p``, so no round reads the host.
 The loop's table writes are rank maps (compares), as in the JAX package:
 on the card an index write waits for the device. The JAX package's
 compare-and-select in place of gathers is a plain gather here.
+
+On the card, without ``mesh`` and for float32 colours of at most
+``GRAPH_MAX_ROWS`` rows, the loop (:func:`lq_loop`: the first candidate
+pass and the rounds) runs as one CUDA graph from the second call with a key
+on: the same kernels in the same order, submitted in one launch in place of
+~12.7k (:func:`lq_quantize`). ``LQ_GRAPH`` counts the calls by the way they
+ran; the replayed kernels' wrappers do not run, so ``kernels.LAUNCHES``
+counts none of them.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
 
+from patolette_tpu_torch.kernels import build
 from patolette_tpu_torch.kernels.lq import lq_candidates
 from patolette_tpu_torch.ops import eigen3
 from patolette_tpu_torch.ops import moments as M
@@ -42,6 +54,25 @@ from patolette_tpu_torch.utils.spans import span
 BUCKET_COUNT = 512
 DELTA = 1e-16
 _EPS = 1e-30
+GRAPH_KEYS = 4   # the keys the graph cache holds, least recent out first
+# A graph only up to the LQ sample's default cap (quantize's lq_max_samples):
+# a larger N (a call with lq_max_samples=0 runs LQ on the whole image) runs
+# eagerly, so what the graphs hold stays bounded whatever the image.
+GRAPH_MAX_ROWS = 1 << 18
+# The device bytes the graphs hold from call to call, at most: their shared
+# inputs at GRAPH_MAX_ROWS rows (colours 12 B a row, weights 4, labels 1 up
+# to 256 colours and 4 above) and k0 in one 512-byte block. The pipeline's
+# footprint model adds it to every route (pipeline.LQ_GRAPH_BYTES).
+GRAPH_HELD_BYTES = 21 * GRAPH_MAX_ROWS + 512
+
+# calls of lq_quantize by how the loop ran: on the host's launches
+# ("eager"), captured as a graph, replayed from one
+LQ_GRAPH = {"eager": 0, "captured": 0, "replayed": 0}
+
+
+def reset_lq_graph() -> None:
+    for name in LQ_GRAPH:
+        LQ_GRAPH[name] = 0
 
 
 class Candidates(NamedTuple):
@@ -178,14 +209,16 @@ def top_b(values, b):
     return values[order], order
 
 
-def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
-                bucket_count=BUCKET_COUNT, batch_splits: int = 1,
-                mesh=None):
-    """Greedy splitting from ``k0`` initial clusters (an int or a 0-d
-    tensor, <= 12) up to ``palette_size``, with the loop's control on the
-    device (the JAX package's ``lq_quantize``, ``local_q.py:282-430``).
-    Returns ``(labels (N,) int32, count)``, ``count`` a 0-d int32 tensor on
-    ``colors``' device."""
+def _batch_size(batch_splits, p: int) -> int:
+    """Splits a round (at most one in 16 of the palette, fewer than p)."""
+    return max(1, min(int(batch_splits), (p + 15) // 16, p - 1))
+
+
+def lq_loop(colors, weights, init_labels, k0, palette_size: int,
+            bucket_count=BUCKET_COUNT, batch_splits: int = 1, mesh=None):
+    """:func:`lq_quantize`'s loop as the host launches it, every kernel
+    one call: the mesh route, the CPU, the first call with a key, and
+    the body a graph captures."""
     n = colors.shape[0]
     p = int(palette_size)
     dev = colors.device
@@ -210,7 +243,7 @@ def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
         count = k0
         done = torch.zeros((), dtype=torch.bool, device=dev)
 
-        bsz = max(1, min(int(batch_splits), (p + 15) // 16, p - 1))
+        bsz = _batch_size(batch_splits, p)
         # Ramp-up headroom: from k0 = 1 it takes ~log2(bsz) doubling rounds
         # before bsz splits per round are possible. Extra rounds change
         # nothing once the palette is full or no benefit is left.
@@ -253,3 +286,177 @@ def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
                                    mu_child)
             count = count + torch.where(active, m, 0)
     return labels, count
+
+
+class _LoopGraph:
+    """One key's :func:`lq_loop` captured as a CUDA graph. It reads and
+    writes fixed addresses: ``colors``, ``w`` (None unweighted: the ones
+    are made inside the graph), ``k0`` (0-d) and ``labels`` (the GQ labels
+    in, the final labels out; bytes up to 256 colours), views of the
+    inputs every key shares (:func:`_input`). A call loads them before its
+    replay and copies the outputs after, under one lock; what the loop
+    makes in between lives in the graph's own pool."""
+
+    def __init__(self, colors, weighted: bool, p: int, bucket_count: int,
+                 bsz: int):
+        n, dev, rows = colors.shape[0], colors.device, GRAPH_MAX_ROWS
+        self.colors = _input(dev, "colors", torch.float32,
+                             3 * rows)[:3 * n].view(n, 3)
+        self.w = (_input(dev, "weights", torch.float32, rows)[:n]
+                  if weighted else None)
+        self.labels = (_input(dev, "labels", torch.uint8, rows)[:n]
+                       if p <= 256 else
+                       _input(dev, "wide labels", torch.int32, rows)[:n])
+        self.k0 = _input(dev, "k0", torch.int32, 1)[0]
+        self.held = ()   # the kernels' reused buffers the graph writes
+        self.args = (p, bucket_count, bsz)
+        self.count = None
+        self.graph = None
+
+    def load(self, colors, weights, init_labels, k0) -> None:
+        self.colors.copy_(colors)
+        if self.w is not None:
+            self.w.copy_(weights)
+        self.labels.copy_(init_labels)
+        if isinstance(k0, torch.Tensor):
+            self.k0.copy_(k0.reshape(()))
+        else:  # a fill, not a host-to-device copy
+            self.k0.fill_(int(k0))
+
+    def body(self):
+        """The loop on the buffers; returns ``count``."""
+        labels, count = lq_loop(self.colors, self.w, self.labels, self.k0,
+                                *self.args)
+        self.labels.copy_(labels)
+        return count
+
+    def capture(self) -> None:
+        """Capture on a side stream. Not ``torch.cuda.graph``: it waits
+        for the card and empties the allocator's cache first, and the
+        planes a call allocates next then take fresh segments whose unsplit
+        tails count as allocated."""
+        dev = self.colors.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.count = self.body()
+            finally:
+                self.graph.capture_end()
+        # every kernel's reused buffer at the capture, those the graph
+        # writes among them: a later, larger buffer under the same name
+        # must not free an address the graph writes
+        self.held = tuple(build._scratch.values())
+
+    def outputs(self):
+        """Copies of the labels (int32) and the count, which the next
+        replay overwrites."""
+        return self.labels.to(torch.int32, copy=True), self.count.clone()
+
+    def replay(self) -> None:
+        with torch.cuda.device(self.colors.device):
+            self.graph.replay()
+
+
+_graphs = collections.OrderedDict()   # key -> _LoopGraph, or None: seen once
+_graphs_lock = threading.Lock()
+_inputs = {}        # (device, name) -> an input buffer the graphs share
+_input_pools = {}   # device -> the memory pool of the graphs' inputs
+
+
+def _input(dev, name, dtype, numel):
+    """The graphs' shared input ``name`` on ``dev``, made at the largest N
+    a graph takes, so that no key's address ever moves. It lives from call
+    to call in a memory pool of its own, so it takes no block of the pool a
+    call's tensors are cut from (where an unsplit block counts whole)."""
+    key = (dev, name)
+    if key not in _inputs:
+        pool = contextlib.nullcontext()
+        if dev.type == "cuda":
+            if dev not in _input_pools:
+                _input_pools[dev] = torch.cuda.MemPool()
+            pool = torch.cuda.use_mem_pool(_input_pools[dev], device=dev)
+        with pool:
+            _inputs[key] = torch.empty(numel, dtype=dtype, device=dev)
+    return _inputs[key]
+
+
+def _forget(keep: int) -> None:
+    """Drop the least recent keys down to ``keep``; with no graph left,
+    release the inputs (under ``_graphs_lock``)."""
+    while len(_graphs) > keep:
+        _graphs.popitem(last=False)
+    if not any(g is not None for g in _graphs.values()):
+        _inputs.clear()
+        _input_pools.clear()
+
+
+def clear_lq_graphs() -> None:
+    """Forget every key and captured loop, and release their inputs: each
+    key's next call runs eagerly."""
+    with _graphs_lock:
+        _forget(0)
+
+
+def graph_bytes() -> int:
+    """Device bytes the graphs hold from call to call (their shared inputs,
+    at most ``GRAPH_HELD_BYTES``)."""
+    with _graphs_lock:
+        return sum(t.numel() * t.element_size() for t in _inputs.values())
+
+
+def _on_card(colors) -> bool:
+    return colors.is_cuda
+
+
+def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
+                bucket_count=BUCKET_COUNT, batch_splits: int = 1,
+                mesh=None):
+    """Greedy splitting from ``k0`` initial clusters (an int or a 0-d
+    tensor, <= 12) up to ``palette_size``, with the loop's control on the
+    device (the JAX package's ``lq_quantize``, ``local_q.py:282-430``).
+    Returns ``(labels (N,) int32, count)``, ``count`` a 0-d int32 tensor on
+    ``colors``' device.
+
+    On the card without ``mesh`` (whose sums are collectives), for float32
+    colours of at most ``GRAPH_MAX_ROWS`` rows, the loop runs eagerly on a
+    key's first call, is captured as a graph on its second and replayed
+    from then on. The key is what fixes the graph's shapes: the device, N,
+    the palette size, the batch, the buckets, the dtype and whether
+    ``weights`` is given; ``k0`` goes in as data. The cache keeps the
+    ``GRAPH_KEYS`` most recent keys, so a size seen once never pays for a
+    capture. One lock spans a replay and its outputs' copies."""
+    p = int(palette_size)
+    n = colors.shape[0]
+    if (mesh is not None or not _on_card(colors) or n > GRAPH_MAX_ROWS
+            or colors.dtype != torch.float32):
+        LQ_GRAPH["eager"] += 1
+        return lq_loop(colors, weights, init_labels, k0, p, bucket_count,
+                       batch_splits, mesh)
+    bsz = _batch_size(batch_splits, p)
+    key = (colors.device, n, p, bsz, int(bucket_count), colors.dtype,
+           weights is not None)
+    with _graphs_lock:
+        seen = key in _graphs
+        graph = _graphs.pop(key, None)
+        if seen and graph is None:
+            graph = _LoopGraph(colors, weights is not None, p,
+                               int(bucket_count), bsz)
+            graph.load(colors, weights, init_labels, k0)
+            graph.capture()
+            LQ_GRAPH["captured"] += 1
+        elif graph is not None:
+            graph.load(colors, weights, init_labels, k0)
+        _graphs[key] = graph
+        _forget(GRAPH_KEYS)
+        if graph is not None:
+            with span("lq-loop"):
+                graph.replay()
+                labels, count = graph.outputs()
+            LQ_GRAPH["replayed"] += 1
+            return labels, count
+    LQ_GRAPH["eager"] += 1
+    return lq_loop(colors, weights, init_labels, k0, p, bucket_count,
+                   batch_splits)

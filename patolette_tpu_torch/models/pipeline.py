@@ -154,6 +154,10 @@ ONE_SHOT_BYTES_PER_PIXEL_SALIENCY_OR_DITHER = 108
 IMAGE_LUT_BYTES_PER_PIXEL = 103
 IMAGE_LUT_FIXED_BYTES = (3 * 4 + 1) * LUT.LUT_SIZE + 2 * buffer_words(
     LUT.LUT_SIZE)
+# Beside each route's bytes above, whatever N: what the LQ graphs hold on
+# the card from call to call (local_q.GRAPH_HELD_BYTES, ~5.5 MB), taken
+# off the device budget.
+LQ_GRAPH_BYTES = LQ.GRAPH_HELD_BYTES
 DEVICE_BUDGET_FRACTION = 0.8
 
 # The JAX package's thresholds of the sampled route (pipeline.py:210-217).
@@ -345,7 +349,7 @@ def _unpack_palette(pack_np, p):
 def _device_budget(device):
     if device.type == "cuda":
         total = torch.cuda.get_device_properties(device).total_memory
-        return int(total * DEVICE_BUDGET_FRACTION)
+        return int(total * DEVICE_BUDGET_FRACTION) - LQ_GRAPH_BYTES
     return 1 << 62
 
 
