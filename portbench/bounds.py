@@ -33,6 +33,9 @@ GQ_BUCKETS = 512
 GQ_LEVELS = 12
 LUT_CODES = 1 << 24
 MOMENT_FEATURES = 11
+# dithered calls without saliency above this many pixels take the
+# streamed route (models/pipeline.py STRIP_DITHER_MIN_PIXELS)
+STRIP_DITHER_MIN_PIXELS = 1 << 22
 
 
 def bound_ms(nbytes, flops, f64_flops=0):
@@ -74,7 +77,11 @@ _TO_2020 = _ops(_TO_XYZ, _MAT)
 _2020_ICTCP = _ops(_MAT, *[_PQ_INV] * 3, _MAT)
 _TO_ICTCP = _ops(_TO_2020, _2020_ICTCP)
 _ICTCP_2020 = _ops(_MAT, *[_PQ_UNIT] * 3, _MAT)
-K10_OPS = {"srgb_to_ictcp": _TO_ICTCP, "ictcp_to_rec2020": _ICTCP_2020}
+# the streamed dither's one pass a strip: float sRGB -> working (ICtCp) ->
+# linear Rec2020; uint8 sRGB -> linear Rec2020 directly (the packed feed)
+K10_OPS = {"srgb_to_ictcp": _TO_ICTCP, "ictcp_to_rec2020": _ICTCP_2020,
+           "srgb_to_ictcp_to_rec2020": _ops(_TO_ICTCP, _ICTCP_2020),
+           "srgb_to_rec2020": _TO_2020}
 
 
 def k10_ms(m, target, in_bytes):
@@ -151,24 +158,36 @@ def call_least_ms(call, n, valid, input_dtype):
     dither_segment) and ``valid`` palette entries: the uint8 undithered
     call of at least 2^22 pixels draws its samples on the host and maps
     through the 2^24-entry table (its grid is built once a process, so no
-    call pays it); every other converts the whole image,
+    call pays it); the dithered call without saliency of more than 2^22
+    pixels draws its samples on the host and converts only them to the
+    working space, then converts each strip once, sRGB to linear Rec2020,
+    orders and dithers it; every other converts the whole image,
     with saliency when tile_size > 0, then dithers or maps it."""
     p = int(call["palette_size"])
     m = min(n, int(call.get("lq_max_samples", 1 << 18)))
     niter = int(call.get("kmeans_niter", 32))
     in_bytes = 3 if input_dtype == "uint8" else 12
-    if input_dtype == "uint8" and not call.get("dither", True) \
-            and n >= 1 << 22:
+    segment = int(call.get("dither_segment", 4096))
+    dither = call.get("dither", True)
+    saliency = float(call.get("tile_size", 512.0)) > 0
+    if input_dtype == "uint8" and not dither and n >= 1 << 22:
         return (k10_ms(m, "srgb_to_ictcp", 3)
                 + palette_core_ms(m, p, valid, niter)
                 + k5_ms(p) + k6_v2_ms())
+    if dither and not saliency and n > STRIP_DITHER_MIN_PIXELS:
+        strip = ("srgb_to_rec2020" if input_dtype == "uint8"
+                 else "srgb_to_ictcp_to_rec2020")
+        return (k10_ms(m, "srgb_to_ictcp", in_bytes)
+                + palette_core_ms(m, p, valid, niter)
+                + k10_ms(n, strip, in_bytes) + k7_ms(n)
+                + k8_ms(n, p, valid, segment))
     t = k10_ms(n, "srgb_to_ictcp", in_bytes)
-    if float(call.get("tile_size", 512.0)) > 0:
+    if saliency:
         t += k9_ms(n)
     t += palette_core_ms(m, p, valid, niter)
-    if call.get("dither", True):
+    if dither:
         t += k10_ms(n, "ictcp_to_rec2020", 12) + k7_ms(n) + k8_ms(
-            n, p, valid, int(call.get("dither_segment", 4096)))
+            n, p, valid, segment)
     else:
         t += k3_ms(n, p)
     return t

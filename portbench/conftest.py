@@ -32,3 +32,22 @@ def small_cell():
         return cell
 
     return make
+
+
+@pytest.fixture
+def small_strips(monkeypatch):
+    """Strips of ``rows`` rows for a small streamed cell: the program's
+    strip size and the size above which a dither streams are patched so
+    that a small image streams, and the configuration's ``strip_rows``
+    follows them."""
+    from patolette_tpu_torch.models import pipeline
+
+    def make(cell, rows):
+        width = int(cell["traffic"]["width"])
+        monkeypatch.setattr(pipeline, "STREAM_STRIP_MIN", width * rows)
+        monkeypatch.setattr(pipeline, "STREAM_STRIP_MAX", width * rows)
+        monkeypatch.setattr(pipeline, "STRIP_DITHER_MIN_PIXELS", 0)
+        cell["config"]["strip_rows"] = rows
+        return cell
+
+    return make

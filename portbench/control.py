@@ -39,16 +39,26 @@ def readings(cell, seed, with_control, device, quantize, images=None):
     w, h = int(tr["width"]), int(tr["height"])
     call = dict(cfg["call"])
     p = int(call.pop("palette_size"))
-    dither = bool(call["dither"])
     segment = int(call.get("dither_segment", 4096))
-    gap = "dither_gap" if dither else "map_gap"
-    out = {"program": {gap: [], "palette_excess": []},
-           "control": {gap: [], "palette_excess": []}, "bad_outputs": 0}
+    gaps = [n for n in cell["limits"]
+            if n not in ("bad_outputs", "palette_excess")]
+    out = {"program": {**{g: [] for g in gaps}, "palette_excess": []},
+           "control": {**{g: [] for g in gaps}, "palette_excess": []},
+           "bad_outputs": 0}
 
-    def judge(img, pal, pmap):
-        if dither:
+    def judge(gap, img, pal, pmap):
+        if gap == "dither_gap":
             return check.dither_gap(img, pal, pmap, w, h, device, segment)
-        return check.map_gap(img, pal, pmap, device)
+        if gap == "map_gap":
+            return check.map_gap(img, pal, pmap, device)
+        return manifest.check(gap).check(img, pal, pmap, w, h, device, cfg)
+
+    def control_map(gap, img, pal):
+        if gap == "dither_gap":
+            return control.dither_map(img, pal, w, h, device, segment)
+        if gap == "map_gap":
+            return control.nearest_map(img, pal, device)
+        return manifest.check(gap).control(img, pal, w, h, device, cfg)
 
     for img in gen.make_images(tr, cfg["input_dtype"], seed,
                                device)[:images]:
@@ -57,13 +67,15 @@ def readings(cell, seed, with_control, device, quantize, images=None):
         out["bad_outputs"] += bad
         if bad:
             continue
-        out["program"][gap].append(judge(img, pal, pmap))
+        for gap in gaps:
+            out["program"][gap].append(judge(gap, img, pal, pmap))
         ref = check.PaletteReference(img, w, h, cfg["call"], device, seed)
         out["program"]["palette_excess"].append(ref.excess(pal))
         if with_control:
-            cmap = (control.dither_map(img, pal, w, h, device, segment)
-                    if dither else control.nearest_map(img, pal, device))
-            out["control"][gap].append(judge(img, pal, cmap))
+            for gap in gaps:
+                cmap = control_map(gap, img, pal)
+                out["control"][gap].append(judge(gap, img, pal, cmap))
+                del cmap
             out["control"]["palette_excess"].append(
                 ref.excess(control.palette(ref)))
         del ref

@@ -1,6 +1,7 @@
 """Find a cell's parts by name: ``BENCHMARK.json`` at the checkout's root,
 the configuration file it names, ``traffic/<traffic>.json``,
-``checks/<config>.json`` and ``metrics/<metric>.py``."""
+``checks/<config>.json``, ``metrics/<metric>.py`` and
+``reference/checks/<number>.py``."""
 
 from __future__ import annotations
 
@@ -45,14 +46,30 @@ def cell(bench, workload, root=ROOT):
     }
 
 
-def reader(name):
-    """The ``read(ctx)`` function of ``metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
+def _module(path, prefix, name):
     spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+        f"{prefix}{name.replace('.', '_').replace('-', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name):
+    """The ``read(ctx)`` function of ``metrics/<name>.py``."""
+    return _module(HERE / "metrics" / f"{name}.py", "portbench_metric_",
+                   name).read
+
+
+def check(name):
+    """The module ``reference/checks/<name>.py`` of a number compared that
+    ``run.judge`` does not know: its ``check(pixels, palette, pmap, width,
+    height, device, config)`` gives ``(value, left out)``, and its
+    ``control(pixels, palette, width, height, device, config)``, where it
+    has one, the control's map. KeyError where there is no such file."""
+    path = HERE / "reference" / "checks" / f"{name}.py"
+    if not path.is_file():
+        raise KeyError(f"no reference number {name!r}")
+    return _module(path, "portbench_check_", name)
 
 
 def lap_layers():

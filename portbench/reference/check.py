@@ -12,6 +12,10 @@ reference in float64.
   the error-corrected colour that the walk holds at that step, the queue
   fed with the program's own earlier choices (as a served model's tokens
   are fed back when its logits are checked).
+* ``dither_gap_strips`` (``checks/dither_gap_strips.py``, maps of a
+  streamed call): ``dither_gap`` with each strip walked along its own
+  curve with a fresh queue, as the program dithers it. A check that only
+  some configurations need is a file of ``checks/``, found by its name.
 * ``palette_excess``: how much worse the program's palette serves the
   image than the reference's own palette search does (``palette.py``,
   float64): the weighted squared ICtCp distance of a draw of pixels to
@@ -125,22 +129,38 @@ def visit_order(width, height, device):
     return torch.argsort(hilbert_d(idx % width, idx // width, order))
 
 
-def _lanes(width, height, segment, device):
-    """(L, seg) visit steps: lanes of ``segment`` curve pixels, each with
-    its own queue from zero; the last lane padded with index N."""
+def _lanes(width, height, segment, device, strip_rows=None):
+    """(L, seg) visit steps: each strip of ``strip_rows`` rows (by default
+    one strip, the whole image) along its own curve, whose side is the
+    least power of two >= max(width, the strip's rows), in lanes of
+    ``segment`` of its curve pixels, each with its own queue from zero;
+    each strip's last lane, and any lane shorter than the widest, padded
+    with index N."""
     n = width * height
-    seg = max(1, min(int(segment) or n, n))
-    lanes = -(-n // seg)
-    perm = visit_order(width, height, device)
-    pad = torch.full((lanes * seg - n,), n, dtype=perm.dtype, device=device)
-    return torch.cat([perm, pad]).reshape(lanes, seg), n
+    rows = height if not strip_rows else min(int(strip_rows), height)
+    parts = []
+    for r0 in range(0, height, rows):
+        h = min(rows, height - r0)
+        ns = width * h
+        seg = max(1, min(int(segment) or ns, ns))
+        lanes = -(-ns // seg)
+        perm = visit_order(width, h, device) + r0 * width
+        pad = torch.full((lanes * seg - ns,), n, dtype=perm.dtype,
+                         device=device)
+        parts.append(torch.cat([perm, pad]).reshape(lanes, seg))
+    seg = max(p.shape[1] for p in parts)
+    parts = [torch.nn.functional.pad(p, (0, seg - p.shape[1]), value=n)
+             for p in parts]
+    return torch.cat(parts), n
 
 
 def walk(pixels, palette, width, height, device, segment=4096,
-         dtype=torch.float64, labels=None):
+         dtype=torch.float64, labels=None, strip_rows=None):
     """The Riemersma walk (the curve, ``segment``-pixel lanes, the 16-deep
     queue, luma-weighted linear Rec2020) in ``dtype``, the transforms in
     float32 under a narrower one: ``(widest gap, steps left out, map)``.
+    With ``strip_rows`` each strip of that many rows is walked along its
+    own curve, as a streamed call dithers it (see :func:`_lanes`).
     With ``labels`` (a map to judge) the queue is fed with them and the gap
     is each label's; without, the walk takes its own nearest entry at each
     step, which makes the (N,) int32 ``map``, and the gap is 0."""
@@ -154,7 +174,7 @@ def walk(pixels, palette, width, height, device, segment=4096,
     cw = torch.tensor(CHANNEL_WEIGHTS, dtype=dtype, device=device)
     qw = torch.tensor(QUEUE_WEIGHTS, dtype=dtype, device=device)
     clamp_rows = torch.as_tensor(clamped[idx], device=device)
-    steps, n = _lanes(width, height, segment, device)
+    steps, n = _lanes(width, height, segment, device, strip_rows)
     slot = torch.as_tensor(np.maximum(np.cumsum(valid) - 1, 0), device=device)
     forced = labels is not None
     out = torch.zeros(n + 1, dtype=torch.long, device=device)

@@ -47,6 +47,15 @@ def dither_map(pixels, palette, width, height, device, segment=4096,
                       dtype)[2]
 
 
+def dither_map_strips(pixels, palette, width, height, device, strip_rows,
+                      segment=4096, dtype=torch.bfloat16):
+    """(N,) int32 Riemersma map of a streamed call, each strip of
+    ``strip_rows`` rows along its own curve, made by the reference's walk
+    in ``dtype`` (bfloat16 for the control)."""
+    return check.walk(pixels, palette, width, height, device, segment,
+                      dtype, strip_rows=strip_rows)[2]
+
+
 def palette(ref, dtype=torch.bfloat16):
     """The palette of the reference's search in ``dtype`` (bfloat16 for the
     control), saliency too, on the image of ``ref``

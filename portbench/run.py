@@ -112,7 +112,8 @@ def judge(cell, images, kept, device, seed, log=log):
                         px, w, h, cfg["call"], device, seed)
                 v, out = refs[c["image"]].excess(c["palette"]), 0
             else:
-                raise KeyError(f"no reference number {name!r}")
+                v, out = manifest.check(name).check(
+                    px, c["palette"], c["map"], w, h, device, cfg)
             log(f"call {i} (image {c['image']}): {name} {v!r}, "
                 f"{out} left out")
             values[name].append(v)

@@ -67,3 +67,52 @@ def test_call_least_time_by_route():
             + bounds.k7_ms(N2K) + bounds.k8_ms(N2K, 256, 256, 4096))
     assert bounds.call_least_ms(default, N2K, 256, "float32") == \
         pytest.approx(want)
+
+
+@pytest.mark.parametrize("config, n, valid, want", [
+    ("default-call", N4K, 256, 1.0238927972790592),
+    ("export-u8", N4K, 256, 0.2859333484396201),
+    ("default-call", N2K, 256, 0.8721280498163727),
+    ("default-call", N4K, 241, 1.01074647130891),
+    ("export-u8", N4K, 241, 0.2756627812754409),
+    ("default-call", N2K, 241, 0.8589817238462234),
+])
+def test_the_older_cells_least_time_is_pinned(config, n, valid, want):
+    """default-4k, export-4k and default-2k read the least times they read
+    before the streamed route had terms of its own."""
+    from portbench.harness import manifest
+
+    cfg = manifest.load_json(manifest.HERE / "configs" / f"{config}.json")
+    assert bounds.call_least_ms(cfg["call"], n, valid,
+                                cfg["input_dtype"]) == want
+
+
+def test_streamed_dither_least_time():
+    """The dithered call without saliency above 2^22 pixels: K10 on the
+    draws, the palette core, then one K10 pass (sRGB -> ICtCp -> linear
+    Rec2020), K7 and K8 over every pixel; no full-image ICtCp pass."""
+    streamed = {"palette_size": 256, "dither": True, "tile_size": 0.0,
+                "kmeans_niter": 32}
+    assert bounds.K10_OPS["srgb_to_ictcp_to_rec2020"] == (54, 105)
+    strip = bounds.k10_ms(N100, "srgb_to_ictcp_to_rec2020", 12)
+    assert strip == pytest.approx(24 * N100 / MB)       # the bytes bind
+    want = (bounds.k10_ms(M, "srgb_to_ictcp", 12)
+            + bounds.palette_core_ms(M, 256, 256, 32) + strip
+            + bounds.k7_ms(N100) + bounds.k8_ms(N100, 256, 256, 4096))
+    assert bounds.call_least_ms(streamed, N100, 256, "float32") == \
+        pytest.approx(want)
+    # the uint8 strip goes to linear Rec2020 directly
+    u8 = (bounds.k10_ms(M, "srgb_to_ictcp", 3)
+          + bounds.palette_core_ms(M, 256, 256, 32)
+          + bounds.k10_ms(N100, "srgb_to_rec2020", 3)
+          + bounds.k7_ms(N100) + bounds.k8_ms(N100, 256, 256, 4096))
+    assert bounds.call_least_ms(streamed, N100, 256, "uint8") == \
+        pytest.approx(u8)
+    # at most 2^22 pixels the call is one-shot: the whole image converted
+    n = 1 << 22
+    one_shot = (bounds.k10_ms(n, "srgb_to_ictcp", 12)
+                + bounds.palette_core_ms(M, 256, 256, 32)
+                + bounds.k10_ms(n, "ictcp_to_rec2020", 12)
+                + bounds.k7_ms(n) + bounds.k8_ms(n, 256, 256, 4096))
+    assert bounds.call_least_ms(streamed, n, 256, "float32") == \
+        pytest.approx(one_shot)

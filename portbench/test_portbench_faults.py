@@ -7,7 +7,8 @@ one palette entry moved, half of the map left as entry 0, the previous
 image's answer returned again (its state unchanged), a call that fails;
 or so that the palette search does less: KMeans skipped, the saliency
 left out (weights of 1), half the palette's colours searched. The
-unbroken run comes out correct. One-card cells have no exchange between
+unbroken run comes out correct. The streamed cell runs in strips of 32
+rows, so that its check walks three strips. One-card cells have no exchange between
 chips to leave out. The faults use entries with every channel inside
 (0, 1): the reference leaves out pixels at entries clamped to the cube's
 faces (see ``reference/check.py``). The saliency's tile is cut with the
@@ -77,16 +78,20 @@ SEARCH_FAULTS = {"no_kmeans": no_kmeans, "no_saliency": no_saliency,
                  "half_palette": half_palette}
 
 
-CASES = [(w, f) for w in ("export-4k", "default-2k")
+CASES = [(w, f) for w in ("export-4k", "default-2k",
+                           "dither-100mp-streamed")
          for f in (None, *FAULTS, *SEARCH_FAULTS)
-         if not (f == "no_saliency" and w == "export-4k")]   # no saliency
+         if not (f == "no_saliency" and w != "default-2k")]  # no saliency
 
 
 @pytest.mark.parametrize("workload, fault", CASES)
-def test_a_broken_path_is_not_correct(workload, fault, small_cell):
+def test_a_broken_path_is_not_correct(workload, fault, small_cell,
+                                      small_strips):
     from patolette_tpu_torch.models import pipeline
 
     cell = small_cell(workload, width=128, height=96, images=2)
+    if "strip_rows" in cell["config"]:      # 3 strips of 32 rows
+        small_strips(cell, 32)
     call = cell["config"]["call"]
     if call["tile_size"] > 0:
         call["tile_size"] = 16.0
